@@ -23,10 +23,10 @@ test: all
 pytest:
 	$(PYTHON) -m pytest tests/ -q
 
-# Hardware smoke: compiled Pallas kernels, clean + injected solves on the
-# real TPU (skipped in the regular CPU-pinned suite).
-test-tpu:
-	ABFT_TPU_SMOKE=1 $(PYTHON) -m pytest tests/test_tpu.py -q
+# Hardware check on an NVIDIA GPU: runs chip_smoke.py through the `gpu`
+# pytest marker (the test skips on a machine without a GPU).
+test-gpu:
+	$(PYTHON) -m pytest tests/ -q -m gpu
 
 benchmark: all
 	./run_benchmark "$(PYTHON) bin/cg-csr" -b 10
@@ -38,4 +38,4 @@ bench: all
 clean:
 	$(MAKE) -C native clean
 
-.PHONY: all native matrix test test-tpu pytest benchmark bench clean
+.PHONY: all native matrix test test-gpu pytest benchmark bench clean

@@ -15,7 +15,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from abft_sparse_cg_tpu.utils.matgen import (  # noqa: E402
+from abft_sparse_cg.utils.matgen import (  # noqa: E402
     spd_laplacian_2d,
     spd_tridiagonal,
     write_mm_triangle,

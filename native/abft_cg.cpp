@@ -1,4 +1,4 @@
-// abft_cg — native host backend for abft_sparse_cg_tpu (the "cpu" target).
+// abft_cg — native host backend for abft_sparse_cg (the "cpu" target).
 //
 // A C++/OpenMP implementation of the ABFT-protected CG solve over the
 // framework's plane-of-uint32 matrix representation (SoA: one array per
@@ -9,7 +9,7 @@
 //   - SoA planes shared zero-copy with NumPy; values live as the two
 //     halves of their binary64 pattern, reassembled on use.
 //   - Parity masks are generated at init time from the Hamming-code
-//     construction (see ../abft_sparse_cg_tpu/ecc/layout.py), not
+//     construction (see ../abft_sparse_cg/ecc/layout.py), not
 //     hard-coded tables.
 //   - Errors return a code + first-offender index instead of exit(1);
 //     the Python driver renders the reference's exact stdout strings.
@@ -213,7 +213,7 @@ inline bool check_element(const Layout& L, int mode, uint32_t* w,
 }  // namespace
 
 // ---------------------------------------------------------------------
-// Detect-fast / repair-rarely (same schedule as the TPU solver): per
+// Detect-fast / repair-rarely (same schedule as the device solver): per
 // iteration run an unchecked SpMV with the per-element overall-parity
 // signal fused in (single read of the planes), plus — for the modes that
 // need even-weight coverage — a per-8-element XOR block-checksum scan
@@ -247,7 +247,7 @@ static void refresh_cksums(const uint32_t* const* planes, int nw, int64_t nnz,
 
 // Unchecked SpMV used on the fast path, reading a contiguous double
 // array derived once per solve (reassembling each value from its two
-// uint32 planes per element costs ~1.7x; same trick as the TPU
+// uint32 planes per element costs ~1.7x; same trick as the device
 // MatrixDevice.values plane).
 static void spmv_plain_csr(const double* vals, const uint32_t* col,
                            const int64_t* row_ptr, int64_t N,
@@ -667,7 +667,8 @@ int abft_cg_solve(const char* fmt, const char* mode_s,
     if (rr_trace) rr_trace[itr] = rr;
     // Live per-iteration residual (reference cg.cpp:116-117) — the host
     // target streams it during the solve; device targets replay the
-    // carried trace post-hoc (no host callbacks on the TPU runtime).
+    // carried trace post-hoc (a host callback per iteration would
+    // stall the device loop).
     if (live) {
       std::printf("iteration %5d :  rr = %12.4f\n", itr, rr);
       std::fflush(stdout);

@@ -9,10 +9,10 @@ flat tail so the core keeps the compiled tier.
 import numpy as np
 import pytest
 
-from abft_sparse_cg_tpu.backends import create
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.inject import inject_bitflips
-from abft_sparse_cg_tpu.ops.spmv import spmv_dense_oracle
+from abft_sparse_cg.backends import create
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.inject import inject_bitflips
+from abft_sparse_cg.ops.spmv import spmv_dense_oracle
 
 RNG = np.random.default_rng(4242)
 
@@ -46,19 +46,17 @@ def test_wide_band_selects_band_split(fmt):
     m = build_protected(fmt, a, "secded", reorder="none")
     assert m.exec_kind == "split"
     assert m.main.exec_kind in ("dia", "ell")
-    assert m.main.band <= 16256          # scan-tier main
+    assert m.main.band <= 16256          # a wide main
     assert m.tail.exec_kind == "flat"
     assert m.tail.nnz <= 0.10 * a.nnz
     assert m.main.nnz + m.tail.nnz == a.nnz
     # opt-out keeps the single-layout build
     m2 = build_protected(fmt, a, "secded", split="none", reorder="none")
     assert m2.exec_kind != "split"
-    # with RCM allowed, band 3236 is whole-matrix-eligible; since
-    # round 5 the cost model sends such wide-band whole candidates to
-    # the flat/Benes tier (benes_beats_rolled — measured 1.7-2.8x over
-    # the rolled scan), still unsplit and still on a compiled kernel
+    # with RCM allowed, band 3236 is whole-matrix-eligible: unsplit,
+    # permuted ELL on the kernel route
     m3 = build_protected(fmt, a, "secded")
-    assert m3.exec_kind == "flat" and m3.unstr_plan is not None
+    assert m3.exec_kind == "ell" and m3.perm is not None
 
 
 @pytest.mark.parametrize("fmt", ["csr", "coo"])
@@ -106,20 +104,19 @@ def test_band_split_fault_events_match_unsplit(mode):
 
 
 def test_band_split_pallas_kernel_tier():
-    """The composite's main part rides the banded kernels (interpret
-    mode); full solve matches the jnp oracle."""
+    """The composite's main part rides the ELL kernel (interpret mode);
+    full solve matches the jnp oracle."""
     import jax
     import jax.numpy as jnp
 
-    from abft_sparse_cg_tpu.ops.spmv import make_matrix_device, make_spmv
-    from abft_sparse_cg_tpu.ops.spmv_pallas import (make_pallas_spmv,
-                                                    supports)
-    from abft_sparse_cg_tpu.solver.cg import make_cg_solver
+    from abft_sparse_cg.ops.spmv import make_matrix_device, make_spmv
+    from abft_sparse_cg.ops.spmv_pallas import make_pallas_spmv, route_for
+    from abft_sparse_cg.solver.cg import make_cg_solver
 
     a = wide_band()
     m = build_protected("csr", a, "secded", reorder="none")
     assert m.exec_kind == "split"
-    assert supports(m.main, jnp.float32)
+    assert route_for(m.main, "gpu") == "triton-ell"
     md = make_matrix_device(m, jnp.float32)
     b = np.zeros(m.R)
     b[: m.N] = RNG.random(m.N)

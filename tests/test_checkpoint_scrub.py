@@ -4,19 +4,19 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from abft_sparse_cg_tpu.backends import create
-from abft_sparse_cg_tpu.backends.jnp_backend import _device_arrays
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.inject import inject_bitflips
-from abft_sparse_cg_tpu.ops.spmv import make_spmv
-from abft_sparse_cg_tpu.scrub import scrub
-from abft_sparse_cg_tpu.solver.checkpoint import (
+from abft_sparse_cg.backends import create
+from abft_sparse_cg.backends.jnp_backend import _device_arrays
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.inject import inject_bitflips
+from abft_sparse_cg.ops.spmv import make_spmv
+from abft_sparse_cg.scrub import scrub
+from abft_sparse_cg.solver.checkpoint import (
     CheckpointedSolve,
     load_state,
     save_state,
 )
-from abft_sparse_cg_tpu.solver.cg import init_state
-from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal
+from abft_sparse_cg.solver.cg import init_state
+from abft_sparse_cg.utils.matgen import spd_tridiagonal
 
 RNG = np.random.default_rng(11)
 
@@ -132,7 +132,7 @@ def test_segmented_solve_with_fault_matches_straight(tmp_path):
     # classifies exactly once — corrected_count is exact, not inflated.
     assert int(seg.stats.corrected_count) == 1
     # And the returned device planes are the repaired data.
-    from abft_sparse_cg_tpu.scrub import scrubbed_from_device
+    from abft_sparse_cg.scrub import scrubbed_from_device
 
     repaired = scrubbed_from_device(m2, seg.md)
     for n in m.layout.word_names:

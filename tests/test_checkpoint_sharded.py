@@ -1,16 +1,16 @@
 """Checkpoint/resume composed with the mesh-sharded tiers.
 
 A production multi-chip solve must survive a host crash: the segmented
-CheckpointedSolve drives the SAME sharded continue-loop (GSPMD jnp or
-the shard_map per-shard kernels), snapshots CGState to host .npz
+CheckpointedSolve drives the SAME sharded continue-loop (the GSPMD
+program of the jnp target or of the pallas target's live version),
+snapshots CGState to host .npz
 between segments, and on resume re-establishes the row sharding via the
 ``state_put`` hook.  Segmenting must not change the arithmetic: the
 segmented/resumed solves are asserted bit-exact against the straight
 sharded solve, including a mid-solve ABFT correction carried across a
 segment boundary (the scrubbed md of one segment seeds the next).
 
-Runs on the conftest's 8-virtual-device CPU mesh; the shard_map tier
-uses interpret mode (same kernels the TPU compiles).
+Runs on the conftest's 8-virtual-device CPU mesh.
 """
 
 import numpy as np
@@ -20,16 +20,16 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.inject import inject_bitflips
-from abft_sparse_cg_tpu.ops.spmv import make_spmv
-from abft_sparse_cg_tpu.parallel.sharded import (
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.inject import inject_bitflips
+from abft_sparse_cg.ops.spmv import make_spmv
+from abft_sparse_cg.parallel.sharded import (
     _device_put_sharded,
     default_mesh,
 )
-from abft_sparse_cg_tpu.solver.cg import make_cg_solver
-from abft_sparse_cg_tpu.solver.checkpoint import CheckpointedSolve
-from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal
+from abft_sparse_cg.solver.cg import make_cg_solver
+from abft_sparse_cg.solver.checkpoint import CheckpointedSolve
+from abft_sparse_cg.utils.matgen import spd_tridiagonal
 
 RNG = np.random.default_rng(23)
 NDEV = 8
@@ -105,23 +105,20 @@ def test_gspmd_fault_correction_across_segments(tmp_path):
 
 
 @pytest.mark.parametrize("inject", [False, True])
-def test_shardmap_kernel_tier_checkpointed(tmp_path, inject):
-    """The shard_map per-shard kernel tier rides the same segmented
-    runner: make_cg_continue over make_shardmap_spmv, snapshots between
-    segments, resume re-sharded — bit-exact vs the straight solve."""
-    from abft_sparse_cg_tpu.parallel.sharded_kernel import (
-        make_shardmap_spmv,
-        supports_shardmap,
-    )
+def test_gspmd_live_checkpointed(tmp_path, inject):
+    """The pallas target's mesh route (GSPMD over the live version)
+    rides the same segmented runner: make_cg_continue over the live
+    SpMV, snapshots between segments, resume re-sharded — bit-exact vs
+    the straight solve."""
+    from abft_sparse_cg.ops.spmv_pallas import make_pallas_spmv
 
     mesh = _mesh()
     m = _protected(n=1024 * NDEV - 64, blocks=1, mode="secded",
-                   row_align=1024 * NDEV)
-    assert m.exec_kind == "dia" and supports_shardmap(m, jnp.float32, NDEV)
+                   row_align=128 * NDEV)
+    assert m.exec_kind == "dia"
     b = RNG.random(m.N)
     md, bdev, _ = _device_put_sharded(m, b, mesh, jnp.float32)
-    impl = make_shardmap_spmv(m, mesh, jnp.float32, "secded",
-                              interpret=True)
+    impl = make_pallas_spmv(m, jnp.float32, "secded", platform="gspmd")
     straight = jax.jit(make_cg_solver(impl, 100, 1e-7))(md, bdev)
     assert int(straight.stats.errcode) == 0
 
@@ -149,19 +146,16 @@ def test_shardmap_kernel_tier_checkpointed(tmp_path, inject):
 
 
 @pytest.mark.parametrize("target", ["jnp", "pallas"])
-def test_backend_solve_devices_checkpoint_resume(tmp_path, target,
-                                                 monkeypatch):
+def test_backend_solve_devices_checkpoint_resume(tmp_path, target):
     """The CLI path end-to-end: backend.solve(devices=8, checkpoint=...)
     segments the sharded solve, a truncated run resumes, and the result
     matches the straight sharded solve bit-exactly.  pallas routes
-    through the shard_map kernel continue (interpret mode via
-    ABFT_SM_INTERPRET on the virtual mesh)."""
-    from abft_sparse_cg_tpu.backends import create
+    through the GSPMD live continue."""
+    from abft_sparse_cg.backends import create
 
     if target == "pallas":
-        monkeypatch.setenv("ABFT_SM_INTERPRET", "1")
         m = _protected(n=1024 * NDEV - 64, blocks=1, mode="secded",
-                       row_align=1024 * NDEV)
+                       row_align=128 * NDEV)
     else:
         m = _protected()
     b = RNG.random(m.N)

@@ -22,7 +22,7 @@ ENV = dict(
 def small_matrix():
     os.makedirs(os.path.dirname(MTX), exist_ok=True)
     sys.path.insert(0, REPO)
-    from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal, write_mm_triangle
+    from abft_sparse_cg.utils.matgen import spd_tridiagonal, write_mm_triangle
 
     rows, cols, vals, n = spd_tridiagonal(128)
     write_mm_triangle(MTX, rows, cols, vals, n)
@@ -173,23 +173,22 @@ def test_deterministic_with_seed():
     assert strip(p1.stdout) == strip(p2.stdout)
 
 
-def test_check_interval_megakernel_wiring():
-    """--check-interval reaches the megakernel through the backend: the
-    CLI flag sets the env knob, the pallas backend keys its solver cache
-    on it, and the lazy solve corrects an injected fault (exit 0).
-    ABFT_FUSED_INTERPRET routes the megakernel through the interpreter
-    so the full wiring runs without TPU hardware."""
+def test_check_interval_pallas_wiring():
+    """--check-interval reaches the pallas target's lazy schedule
+    through the backend: the CLI flag sets the env knob, the pallas
+    backend keys its solver cache on it, and the lazy solve corrects an
+    injected fault (exit 0).  The route taken is printed."""
     exe = os.path.join(REPO, "bin", "cg-csr")
-    env = dict(ENV, ABFT_FUSED_INTERPRET="1")
     p = subprocess.run(
         [sys.executable, exe, "-f", MTX, "-b", "8", "--seed", "7",
          "--dtype", "f32", "-t", "pallas", "-m", "secded", "-x",
          "--check-interval", "4"],
-        capture_output=True, text=True, env=env, timeout=600,
+        capture_output=True, text=True, env=ENV, timeout=600,
     )
     assert p.returncode == 0, p.stdout + p.stderr
     assert "corrected bit" in p.stdout
     assert "time taken" in p.stdout
+    assert "spmv route = xla-live" in p.stdout
 
 
 @pytest.mark.parametrize("preset", [None, "9"])
@@ -198,7 +197,7 @@ def test_check_interval_scoped_to_invocation(monkeypatch, capsys, preset):
     communicates it to the backends via ABFT_CHECK_INTERVAL but restores
     the prior environment on exit (including the SystemExit path), so a
     later in-process main() without the flag is not silently lazy."""
-    from abft_sparse_cg_tpu import cli
+    from abft_sparse_cg import cli
 
     if preset is None:
         monkeypatch.delenv("ABFT_CHECK_INTERVAL", raising=False)
@@ -239,18 +238,16 @@ def test_checkpoint_flags_segment_and_resume(tmp_path):
     assert "untraced" not in p2.stdout
 
 
-def test_checkpoint_megakernel_corrects_fault(tmp_path):
-    """--checkpoint on the pallas target drives make_fused_continue
-    (interpret mode off-TPU): the segmented megakernel solve corrects an
-    injected fault and exits 0."""
+def test_checkpoint_pallas_corrects_fault(tmp_path):
+    """--checkpoint on the pallas target drives the segmented live
+    solve: it corrects an injected fault and exits 0."""
     ck = str(tmp_path / "ck.npz")
     exe = os.path.join(REPO, "bin", "cg-csr")
-    env = dict(ENV, ABFT_FUSED_INTERPRET="1")
     p = subprocess.run(
         [sys.executable, exe, "-f", MTX, "-b", "8", "--seed", "7",
          "--dtype", "f32", "-t", "pallas", "-m", "secded", "-x",
          "--checkpoint", ck, "--checkpoint-every", "5"],
-        capture_output=True, text=True, env=env, timeout=600,
+        capture_output=True, text=True, env=ENV, timeout=600,
     )
     assert p.returncode == 0, p.stdout + p.stderr
     assert "corrected bit" in p.stdout
@@ -268,11 +265,10 @@ def test_checkpoint_unsupported_target_fails_cleanly(tmp_path):
 
 
 def test_check_interval_auto_stays_symbolic():
-    """--check-interval auto is resolved per kernel tier by the backend
-    (live on the resident megakernel, 32 on streaming tiers — fold-era
-    policy, tests/test_lazy_periter.py::test_check_interval_auto_policy),
-    so the CLI keeps it symbolic for the env handoff."""
-    from abft_sparse_cg_tpu import cli
+    """--check-interval auto is resolved by the backend
+    (tests/test_lazy_periter.py::test_check_interval_auto_policy), so
+    the CLI keeps it symbolic for the env handoff."""
+    from abft_sparse_cg import cli
 
     params = cli.parse_arguments(["--check-interval", "auto"], "csr")
     assert params["check_interval"] == "auto"

@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-pytest.importorskip("abft_sparse_cg_tpu.backends.cpp_backend")
+pytest.importorskip("abft_sparse_cg.backends.cpp_backend")
 
-from abft_sparse_cg_tpu.backends import available, create
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.inject import inject_bitflips
-from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal
+from abft_sparse_cg.backends import available, create
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.inject import inject_bitflips
+from abft_sparse_cg.utils.matgen import spd_tridiagonal
 
 RNG = np.random.default_rng(31)
 
@@ -73,7 +73,7 @@ def test_writeback_scrubs_planes():
 
 def test_native_breakdown_guard():
     """Indefinite matrix -> ERR_BREAKDOWN from the native loop too."""
-    from abft_sparse_cg_tpu.ops.spmv import ERR_BREAKDOWN
+    from abft_sparse_cg.ops.spmv import ERR_BREAKDOWN
 
     n = 32
     idx = np.arange(n)

@@ -1,18 +1,14 @@
 """Fences around the documented detection-scope deviations (PARITY.md).
 
 The fast paths detect even-weight multi-element faults through XOR
-checksums at tier-specific granularity:
-
-  - jnp fast path: stored 8-row blocks — cancellation escapes only
-    within one block;
-  - per-iteration Pallas kernels: position-in-chunk classes (rows
-    congruent mod the chunk size, 8-wide);
-  - whole-solve megakernel: (row mod 1024, 8-wide) interleaved classes.
+checksums over stored 8-row blocks — the jnp fast path over each word
+plane, the pallas target's kernels over the rotated fold plane (ecc.fold)
+— so cancellation escapes only within one block.
 
 secded keeps the per-element parity mask, so multi-element single-bit
-faults are detected at full granularity in every tier.  These tests
+faults are detected at full granularity on every route.  These tests
 execute the exact boundary so a regression cannot silently widen a
-blind spot (or silently lose the upgraded kernel granularity).
+blind spot.
 """
 
 import numpy as np
@@ -21,10 +17,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.ops.spmv import make_matrix_device, make_spmv
-from abft_sparse_cg_tpu.ops.spmv_pallas import make_pallas_spmv
-from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.ops.spmv import make_matrix_device, make_spmv
+from abft_sparse_cg.ops.spmv_pallas import make_pallas_spmv
+from abft_sparse_cg.utils.matgen import spd_tridiagonal
 
 N = 16384  # two 8192-row chunks for the per-iteration kernel
 
@@ -38,7 +34,7 @@ def dia_mat(mode):
 
 def flip_rows(m, r1, r2, bit=5):
     """Flip the same value_lo bit in the diagonal elements of two rows."""
-    from abft_sparse_cg_tpu.ecc import ECC_COL_MASK
+    from abft_sparse_cg.ecc import ECC_COL_MASK
 
     rp = np.asarray(m.row_ptr)
     cols = np.asarray(m.planes["col"]) & np.uint32(ECC_COL_MASK)
@@ -57,18 +53,18 @@ def fast_trigger(impl, m2, dtype):
     return bool(trig)
 
 
-# (row delta, jnp detects, per-iter kernel detects, megakernel detects)
+# (row delta, jnp detects, kernel detects)
 SCOPE = [
-    (2, False, False, False),      # same 8-row block: all blind (doc'd)
-    (8, True, True, True),         # adjacent blocks: all detect
-    (1024, True, True, False),     # same megakernel class
-    (8192, True, False, False),    # same per-iter chunk class too
+    (2, False, False),       # same 8-row block: all blind (doc'd)
+    (8, True, True),         # adjacent blocks: all detect
+    (1024, True, True),      # one kernel row block apart
+    (8192, True, True),      # eight kernel row blocks apart
 ]
 
 
-@pytest.mark.parametrize("delta,jnp_det,kern_det,fused_det", SCOPE)
-def test_sec7_multi_element_scope(delta, jnp_det, kern_det, fused_det):
-    """sec7 has no parity bit — the checksum classes ARE the scope."""
+@pytest.mark.parametrize("delta,jnp_det,kern_det", SCOPE)
+def test_sec7_multi_element_scope(delta, jnp_det, kern_det):
+    """sec7 has no parity bit — the checksum blocks ARE the scope."""
     m = dia_mat("sec7")
     m2 = flip_rows(m, 4000, 4000 + delta)
     assert fast_trigger(make_spmv(m, jnp.float64, "sec7"), m2,
@@ -78,68 +74,57 @@ def test_sec7_multi_element_scope(delta, jnp_det, kern_det, fused_det):
         jnp.float32) == kern_det
 
 
-@pytest.mark.parametrize("streaming", [False, True],
-                         ids=["resident", "streaming"])
-@pytest.mark.parametrize("delta,jnp_det,kern_det,fused_det", SCOPE)
-def test_sec7_megakernel_scope(delta, jnp_det, kern_det, fused_det,
-                               streaming):
-    """Both megakernel tiers (VMEM-resident and HBM-streaming) fold the
-    plane checksums into the same interleaved class structure — the
-    detect/miss boundary must not drift between them."""
-    from abft_sparse_cg_tpu.solver.fused import make_fused_solver
+@pytest.mark.parametrize("block_rows", [1024, 16384],
+                         ids=["multi-block", "one-block"])
+@pytest.mark.parametrize("delta,jnp_det,kern_det", SCOPE)
+def test_sec7_solve_scope(delta, jnp_det, kern_det, block_rows):
+    """The whole pallas-target solve: a detected pair is classified and
+    both single-bit elements corrected; a blind pair is not — and the
+    boundary does not move with the kernel's row-block size."""
+    from abft_sparse_cg.solver.cg import make_cg_solver
 
     m = dia_mat("sec7")
     m2 = flip_rows(m, 4000, 4000 + delta)
     md = make_matrix_device(m2, jnp.float32)
     b = np.zeros(m.R)
     b[: m.N] = np.random.default_rng(1).random(m.N)
-    fus = jax.jit(make_fused_solver(m, "sec7", 50, 1e-6, interpret=True,
-                                    force_streaming=streaming))
+    fus = jax.jit(make_cg_solver(
+        make_pallas_spmv(m, jnp.float32, "sec7", interpret=True,
+                         block_rows=block_rows), 50, 1e-6))
     r = fus(md, jnp.asarray(b, jnp.float32))
-    # Detection => classify corrects both single-bit elements.
-    assert int(r.stats.corrected_count) == (2 if fused_det else 0)
-    assert int(r.stats.errcode) == 0
-
-
-@pytest.mark.parametrize("delta,fused_det", [(2, False), (8, True),
-                                             (1024, False)])
-def test_sec7_rolled_megakernel_scope(delta, fused_det):
-    """The rolled wide-band tier (batched dynamic window gather) folds
-    its streamed word planes into the same (row mod 1024, 8-wide)
-    classes as the banded tiers — the boundary must not drift."""
-    from abft_sparse_cg_tpu.formats import assemble  # noqa: F401
-    from abft_sparse_cg_tpu.solver.fused import _plan, make_fused_solver
-    from tests.test_fused import wideband_matrix
-
-    m = wideband_matrix("sec7")
-    plan = _plan(m, "sec7")
-    assert plan is not None and plan["rolled"]
-    m2 = flip_rows(m, 1000, 1000 + delta)
-    md = make_matrix_device(m2, jnp.float32)
-    b = np.zeros(m.R)
-    b[: m.N] = np.random.default_rng(1).random(m.N)
-    fus = jax.jit(make_fused_solver(m, "sec7", 50, 1e-6, interpret=True))
-    r = fus(md, jnp.asarray(b, jnp.float32))
-    assert int(r.stats.corrected_count) == (2 if fused_det else 0)
+    assert int(r.stats.corrected_count) == (2 if kern_det else 0)
     assert int(r.stats.errcode) == 0
 
 
 @pytest.mark.parametrize("delta,kern_det", [(2, False), (8, True),
-                                            (4096, False)])
+                                            (1024, True)])
+def test_sec7_wideband_solve_scope(delta, kern_det):
+    """A wide-band ELL matrix through the ELL kernel's solve: the same
+    8-row-block boundary as the banded case."""
+    from abft_sparse_cg.solver.cg import make_cg_solver
+    from tests.test_fused import wideband_matrix
+
+    m = wideband_matrix("sec7")
+    m2 = flip_rows(m, 1000, 1000 + delta)
+    md = make_matrix_device(m2, jnp.float32)
+    b = np.zeros(m.R)
+    b[: m.N] = np.random.default_rng(1).random(m.N)
+    fus = jax.jit(make_cg_solver(
+        make_pallas_spmv(m, jnp.float32, "sec7", interpret=True), 50, 1e-6))
+    r = fus(md, jnp.asarray(b, jnp.float32))
+    assert int(r.stats.corrected_count) == (2 if kern_det else 0)
+    assert int(r.stats.errcode) == 0
+
+
+@pytest.mark.parametrize("delta,kern_det", [(2, False), (8, True),
+                                            (4096, True)])
 def test_sec7_periter_wideband_scope(delta, kern_det):
-    """The per-iteration wideband (absolute-scan) kernel keeps the
-    lane-major word planes and the position-in-chunk class compare of
-    the banded kernel — the detect/miss boundary must not drift."""
-    from abft_sparse_cg_tpu.ops.spmv_pallas import (
-        _ELL_MAX_WROWS,
-        _ell_chunk,
-        _ell_window,
-    )
+    """The ELL kernel on a wide band folds the same 8-row blocks as the
+    banded kernel — the detect/miss boundary must not drift."""
     from tests.test_fused import wideband_matrix
 
     m = wideband_matrix("sec7", n=16384)
-    assert _ell_window(m)[1] > _ELL_MAX_WROWS
-    assert _ell_chunk(m.R, m.K) == 4096  # delta=4096 -> same chunk class
+    assert m.band > 1920
     m2 = flip_rows(m, 1000, 1000 + delta)
     assert fast_trigger(
         make_pallas_spmv(m, jnp.float32, "sec7", interpret=True), m2,

@@ -9,7 +9,7 @@ flipped, detected, located and corrected — vectorized, in one shot.
 import numpy as np
 import pytest
 
-from abft_sparse_cg_tpu.ecc import (
+from abft_sparse_cg.ecc import (
     COO128,
     CSR96,
     ECC_COL_MASK,
@@ -199,7 +199,7 @@ def test_jnp_codec_matches_numpy():
 
 def test_planes_to_f32_matches_numpy_cast():
     import jax.numpy as jnp
-    from abft_sparse_cg_tpu.ecc import planes_to_f32
+    from abft_sparse_cg.ecc import planes_to_f32
 
     vals = np.concatenate(
         [

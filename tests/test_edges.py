@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from abft_sparse_cg_tpu.backends import create
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.ops.spmv import spmv_dense_oracle
-from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal
+from abft_sparse_cg.backends import create
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.ops.spmv import spmv_dense_oracle
+from abft_sparse_cg.utils.matgen import spd_tridiagonal
 
 RNG = np.random.default_rng(777)
 
@@ -59,7 +59,7 @@ def test_unknown_mode_and_format_raise():
 
 def test_ecc_mode_size_limit():
     """N > 2^24 must be rejected for ECC modes (col-word high byte)."""
-    from abft_sparse_cg_tpu.formats.loader import AssembledMatrix
+    from abft_sparse_cg.formats.loader import AssembledMatrix
 
     n = (1 << 24) + 8
     # One diagonal entry only — huge N, tiny nnz (no dense allocation).

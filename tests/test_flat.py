@@ -5,11 +5,11 @@ storage is proportional to nnz and handles them fine — so must we)."""
 import numpy as np
 import pytest
 
-from abft_sparse_cg_tpu.backends import available, create
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.inject import inject_bitflips
-from abft_sparse_cg_tpu.ops.spmv import spmv_dense_oracle
-from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal
+from abft_sparse_cg.backends import available, create
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.inject import inject_bitflips
+from abft_sparse_cg.ops.spmv import spmv_dense_oracle
+from abft_sparse_cg.utils.matgen import spd_tridiagonal
 
 RNG = np.random.default_rng(606)
 

@@ -16,11 +16,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from abft_sparse_cg_tpu.ecc.fold import FOLD_SHIFTS, fold_cksum_np, fold_words
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.ops.spmv import make_matrix_device
-from abft_sparse_cg_tpu.ops.spmv_pallas import make_pallas_spmv
-from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal
+from abft_sparse_cg.ecc.fold import FOLD_SHIFTS, fold_cksum_np, fold_words
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.ops.spmv import make_matrix_device
+from abft_sparse_cg.ops.spmv_pallas import make_pallas_spmv
+from abft_sparse_cg.utils.matgen import spd_tridiagonal
 
 RNG = np.random.default_rng(11)
 
@@ -102,6 +102,16 @@ def _flip_exec_bits(m, flips):
     return m.with_planes(planes)
 
 
+def _per_word_trigger(m, m2):
+    """The jnp fast path's per-word parity and block checksums."""
+    from abft_sparse_cg.ops.spmv import make_spmv
+
+    impl = make_spmv(m, jnp.float32, m.mode)
+    x = jnp.asarray(RNG.random(m.R), jnp.float32)
+    _, trig = jax.jit(impl.fast)(make_matrix_device(m2, jnp.float32), x)
+    return bool(trig)
+
+
 def _trigger(m, m2):
     md2 = make_matrix_device(m2, jnp.float32)
     impl = make_pallas_spmv(m, jnp.float32, m.mode, interpret=True)
@@ -133,7 +143,7 @@ def test_fold_cancelling_quad_is_the_documented_blind_spot():
     """The PARITY.md-documented >= 4-bit delta: bits {0,1,2} of w1 fold
     to the same delta as bit 0 of... construct a true cancelling set
     from the column table and pin that (a) the folded live path misses
-    it, (b) the per-word live path (ABFT_LIVE_FOLD=0) catches it, and
+    it, (b) the per-word signals (the jnp fast path) catch it, and
     (c) the classify oracle still sees it — the blind spot is confined
     to the live trigger, not to correctness reporting."""
     cols = _columns()
@@ -148,17 +158,10 @@ def test_fold_cancelling_quad_is_the_documented_blind_spot():
     m = _mat()
     m2 = _flip_exec_bits(m, [(wi, 300, b) for wi, b in found])
     assert not _trigger(m, m2)          # folded live misses (documented)
-
-    import os
-
-    os.environ["ABFT_LIVE_FOLD"] = "0"
-    try:
-        assert _trigger(m, m2)          # per-word live catches
-    finally:
-        del os.environ["ABFT_LIVE_FOLD"]
+    assert _per_word_trigger(m, m2)     # per-word signals catch
 
     # The full oracle (classify path reads true words) still reports it.
-    from abft_sparse_cg_tpu.ops.spmv import make_spmv
+    from abft_sparse_cg.ops.spmv import make_spmv
 
     impl_j = make_spmv(m, jnp.float64, "secded")
     x = jnp.asarray(RNG.random(m.R), jnp.float64)
@@ -208,23 +211,18 @@ def test_fuzz_contract_weights_always_detected(weight):
 
 def test_fuzz_higher_weights_scope_vs_per_word():
     """Beyond the contract domain (>= 3-bit same-element faults), the
-    folded and per-word live schedules may differ only in the
+    folded live signals and the per-word signals may differ only in the
     documented >= 4-bit cancellation class; measure the divergence rate
     over 150 random patterns and pin that (a) weight-3 is always
     caught by BOTH (odd weight -> exact parity arm), (b) weight-4
     divergences stay rare (< 10%) and one-sided (fold misses where
     words catch, never a fold-only false trigger on clean data)."""
-    import os
+    from abft_sparse_cg.ops.spmv import make_spmv
 
     m = _mat()
     x = jnp.asarray(RNG.random(m.R), jnp.float32)
     impl_f = make_pallas_spmv(m, jnp.float32, "secded", interpret=True)
-    os.environ["ABFT_LIVE_FOLD"] = "0"
-    try:
-        impl_w = make_pallas_spmv(m, jnp.float32, "secded",
-                                  interpret=True)
-    finally:
-        del os.environ["ABFT_LIVE_FOLD"]
+    impl_w = make_spmv(m, jnp.float32, "secded")
     fast_f, fast_w = jax.jit(impl_f.fast), jax.jit(impl_w.fast)
     rng = np.random.default_rng(7)
     diverge = 0
@@ -247,27 +245,26 @@ def test_fuzz_higher_weights_scope_vs_per_word():
     assert diverge < 8, diverge  # < ~10% of weight-4 patterns
 
 
-def test_per_word_fallback_full_solve(monkeypatch):
-    """ABFT_LIVE_FOLD=0 (the per-word A/B escape) must keep the full
-    fused solve green: clean converges, injected single-bit corrects
-    bit-exactly — the fallback path cannot rot."""
-    from abft_sparse_cg_tpu.inject import inject_bitflips
-    from abft_sparse_cg_tpu.solver.fused import _plan, make_fused_solver
+def test_per_word_fallback_full_solve():
+    """The per-word signals (the jnp target's schedule, which the fold
+    is measured against) keep the full solve green: clean converges,
+    injected single-bit corrects bit-exactly."""
+    from abft_sparse_cg.inject import inject_bitflips
+    from abft_sparse_cg.ops.spmv import make_spmv
+    from abft_sparse_cg.solver.cg import make_cg_solver
 
-    monkeypatch.setenv("ABFT_LIVE_FOLD", "0")
     tri = spd_tridiagonal(1024)
     a = assemble(tri[1], tri[0], tri[2], tri[3], 1)
-    m = build_protected("csr", a, "secded", row_align=1024)
-    assert not _plan(m, "secded")["folded"]
-    fus = jax.jit(make_fused_solver(m, "secded", 100, 1e-7,
-                                    interpret=True))
+    m = build_protected("csr", a, "secded")
+    solve = jax.jit(make_cg_solver(make_spmv(m, jnp.float32, "secded"),
+                                   100, 1e-7))
     md = make_matrix_device(m, jnp.float32)
     b = jnp.asarray(RNG.random(m.R), jnp.float32)
-    res = fus(md, b, None)
+    res = solve(md, b, None)
     assert int(res.stats.errcode) == 0 and float(res.rr) <= 1e-7
     m1 = inject_bitflips(m, "ANY", 1, np.random.default_rng(5),
                          echo=lambda s: None)
-    r1 = fus(make_matrix_device(m1, jnp.float32), b, None)
+    r1 = solve(make_matrix_device(m1, jnp.float32), b, None)
     assert int(r1.stats.errcode) == 0
     assert int(r1.stats.corrected_count) == 1
     assert np.array_equal(np.asarray(r1.x), np.asarray(res.x))

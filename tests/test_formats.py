@@ -6,8 +6,8 @@ import tempfile
 import numpy as np
 import pytest
 
-from abft_sparse_cg_tpu.ecc import ECC_COL_MASK, check_and_correct
-from abft_sparse_cg_tpu.formats import (
+from abft_sparse_cg.ecc import ECC_COL_MASK, check_and_correct
+from abft_sparse_cg.formats import (
     assemble,
     build_protected,
     load_matrix,
@@ -15,9 +15,9 @@ from abft_sparse_cg_tpu.formats import (
     read_header,
     write_coordinate,
 )
-from abft_sparse_cg_tpu.ecc.values import planes_to_f64_np
-from abft_sparse_cg_tpu.inject import inject_bitflips
-from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal, write_mm_triangle
+from abft_sparse_cg.ecc.values import planes_to_f64_np
+from abft_sparse_cg.inject import inject_bitflips
+from abft_sparse_cg.utils.matgen import spd_tridiagonal, write_mm_triangle
 
 
 @pytest.fixture(scope="module")
@@ -87,7 +87,7 @@ def test_mmio_native_matches_fallback(tmp_path, monkeypatch, case):
     path = str(tmp_path / f"{case}.mtx")
     with open(path, "w", newline="") as f:
         f.write(_MM_BODIES[case])
-    from abft_sparse_cg_tpu.formats import mmio
+    from abft_sparse_cg.formats import mmio
 
     if mmio._load_fast_lib() is None:
         pytest.skip("native mmio library unavailable")

@@ -1,10 +1,11 @@
-"""Whole-solve fused CG megakernel (solver.fused), interpret mode.
+"""The pallas target's solve: the CG while-loop over the per-iteration
+Triton SpMV kernels (ops.spmv_pallas), interpret mode.
 
-The kernel streams the protected planes through a double-buffered DMA
-pipeline and keeps the CG vectors VMEM-resident; these tests check its
-semantics — identical iterates, traces and ABFT events to the jnp
-solver — through the Pallas interpreter (the compiled kernel is
-exercised on hardware by scripts/tpu_smoke.py and the pallas backend).
+Each iteration runs one kernel that reads the value plane, x and the
+fold plane and returns (w, live trigger, p.w); these tests check the
+whole solve's semantics — identical iterates, traces and ABFT events to
+the jnp solver — through the Pallas interpreter (the compiled kernels
+run on the GPU in chip_smoke.py).
 """
 
 import numpy as np
@@ -13,12 +14,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.inject import inject_bitflips
-from abft_sparse_cg_tpu.ops.spmv import ERR_BREAKDOWN, make_matrix_device, make_spmv
-from abft_sparse_cg_tpu.solver.cg import make_cg_solver
-from abft_sparse_cg_tpu.solver.fused import make_fused_solver, supports_fused
-from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.inject import inject_bitflips
+from abft_sparse_cg.ops.spmv import ERR_BREAKDOWN, make_matrix_device, make_spmv
+from abft_sparse_cg.ops.spmv_pallas import (make_pallas_product,
+                                            make_pallas_spmv, route_for)
+from abft_sparse_cg.solver.cg import (make_cg_continue, make_cg_solver,
+                                      make_lazy_ci_continue,
+                                      make_lazy_ci_solver)
+from abft_sparse_cg.utils.matgen import spd_tridiagonal
 
 RNG = np.random.default_rng(77)
 
@@ -27,19 +31,19 @@ def dia_matrix(mode, n=1024, blocks=1):
     rows, cols, vals, n = spd_tridiagonal(n)
     a = assemble(cols, rows, vals, n, blocks)
     m = build_protected("csr", a, mode)
-    assert m.exec_kind == "dia" and m.R % 1024 == 0
+    assert m.exec_kind == "dia"
     return m
 
 
 def ell_matrix(mode, n=1024, blocks=1, shuffle=False):
-    from abft_sparse_cg_tpu.utils.matgen import shuffle_labels
+    from abft_sparse_cg.utils.matgen import shuffle_labels
 
     tri = spd_tridiagonal(n)
     if shuffle:
         tri = shuffle_labels(*tri, seed=11)
     a = assemble(tri[1], tri[0], tri[2], tri[3], blocks)
     m = build_protected("csr", a, mode, force_exec="ell")
-    assert m.exec_kind == "ell" and m.R % 1024 == 0
+    assert m.exec_kind == "ell"
     assert (m.perm is not None) == shuffle
     return m
 
@@ -64,26 +68,39 @@ def split_matrix(mode, n=2048, blocks=1):
     vals[diag] = deg.astype(float)[rows[diag]] + 4.0
     m = build_protected("csr", assemble(cols, rows, vals, n, blocks),
                         mode)
-    assert m.exec_kind == "split" and m.R % 1024 == 0
+    assert m.exec_kind == "split"
     assert m.tail.dense_plan is not None
     return m
 
 
-def make(layout, mode):
+def make(layout, mode, n=1024):
     if layout == "dia":
-        return dia_matrix(mode)
+        return dia_matrix(mode, n)
     if layout == "split":
         return split_matrix(mode)
-    return ell_matrix(mode, shuffle=(layout == "rcm-ell"))
+    return ell_matrix(mode, n, shuffle=(layout == "rcm-ell"))
 
 
-def solvers(m, mode, max_itrs=300, conv=1e-8):
+def kernel_spmv(m, mode, **kw):
+    return make_pallas_spmv(m, jnp.float32, mode, interpret=True, **kw)
+
+
+def solvers(m, mode, max_itrs=300, conv=1e-8, **kw):
+    """(device matrix, jnp reference solve, pallas-target solve)."""
     md = make_matrix_device(m, jnp.float32)
     ref = jax.jit(make_cg_solver(make_spmv(m, jnp.float32, mode),
                                  max_itrs, conv))
-    fus = jax.jit(make_fused_solver(m, mode, max_itrs, conv,
-                                    interpret=True))
+    fus = jax.jit(make_cg_solver(kernel_spmv(m, mode, **kw), max_itrs,
+                                 conv))
     return md, ref, fus
+
+
+def jacobi(m):
+    d = m.diagonal()
+    mpad = np.zeros(m.R)
+    mpad[: m.N] = m.to_exec_order(
+        np.where(d != 0.0, 1.0 / np.where(d == 0, 1, d), 1.0))
+    return jnp.asarray(mpad, jnp.float32)
 
 
 def bvec(m):
@@ -94,12 +111,13 @@ def bvec(m):
 
 @pytest.mark.parametrize("mode", ["sec7", "secded"])
 def test_fused_coo_format(mode):
-    """COO (128-bit codewords, 4 word planes) through the megakernel:
+    """COO (128-bit codewords, 4 word planes) through the ELL kernel:
     clean match to jnp + a mid-stream injected fault corrected."""
     rows, cols, vals, n = spd_tridiagonal(1024)
-    m = build_protected("coo", assemble(cols, rows, vals, n, 1), mode)
-    assert m.exec_kind == "dia" and m.fmt == "coo"
-    assert supports_fused(m, jnp.float32, mode, 300)
+    m = build_protected("coo", assemble(cols, rows, vals, n, 1), mode,
+                        force_exec="ell")
+    assert m.exec_kind == "ell" and m.fmt == "coo"
+    assert route_for(m, "gpu") == "triton-ell"
     md, ref, fus = solvers(m, mode)
     b = bvec(m)
     r0, r1 = ref(md, b), fus(md, b)
@@ -121,7 +139,6 @@ def test_fused_coo_format(mode):
 @pytest.mark.parametrize("mode", ["none", "sed", "sec7", "sec8", "secded"])
 def test_fused_matches_jnp_clean(mode, layout):
     m = make(layout, mode)
-    assert supports_fused(m, jnp.float32, mode, 300)
     md, ref, fus = solvers(m, mode)
     b = bvec(m)
     r0, r1 = ref(md, b), fus(md, b)
@@ -133,8 +150,8 @@ def test_fused_matches_jnp_clean(mode, layout):
     t0 = np.asarray(r0.rr_trace)[:k]
     t1 = np.asarray(r1.rr_trace)[:k]
     if layout == "split":
-        # split sums the tail in a different order (span windows in the
-        # kernel), so once rr falls ~5 orders below rr0 the f32
+        # split sums the tail in a different order (the composite adds
+        # the parts' products), so once rr falls ~5 orders below rr0 the f32
         # rounding noise dominates the trace (verified: a single
         # iteration's x matches to 4e-8; trajectories rejoin and the
         # converged x is equal above).  Compare above the noise floor.
@@ -184,78 +201,70 @@ def test_fused_breakdown_guard():
     planes = {k: v.copy() for k, v in m.planes.items()}
     # Negate the whole diagonal via the value planes: -A is negative
     # definite, p.A.p < 0 on the first iteration.
-    from abft_sparse_cg_tpu.ecc.values import planes_to_f64_np
+    from abft_sparse_cg.ecc.values import planes_to_f64_np
     vals = planes_to_f64_np(planes["value_lo"], planes["value_hi"])
     neg = (-vals).view(np.uint64)
     planes["value_lo"] = (neg & 0xFFFFFFFF).astype(np.uint32)
     planes["value_hi"] = (neg >> 32).astype(np.uint32)
     m2 = m.with_planes(planes)
     md = make_matrix_device(m2, jnp.float32)
-    fus = jax.jit(make_fused_solver(m2, "none", 100, 1e-8,
-                                    interpret=True))
+    fus = jax.jit(make_cg_solver(kernel_spmv(m2, "none"), 100, 1e-8))
     r = fus(md, bvec(m))
     assert int(r.stats.errcode) == ERR_BREAKDOWN
     assert int(r.iterations) == 0
 
 
 def test_fused_no_trace():
-    """trace_rr=False: no SMEM trace cap, nan trace, same iterates."""
+    """trace_rr=False: a one-slot nan trace, same iterates."""
     m = dia_matrix("secded")
     md = make_matrix_device(m, jnp.float32)
     b = bvec(m)
-    fus = jax.jit(make_fused_solver(m, "secded", 300, 1e-8,
-                                    trace_rr=False, interpret=True))
+    fus = jax.jit(make_cg_solver(kernel_spmv(m, "secded"), 300, 1e-8,
+                                 trace_rr=False))
     r = fus(md, b)
     _, ref, _ = solvers(m, "secded")
     r0 = ref(md, b)
     assert int(r.iterations) == int(r0.iterations)
     np.testing.assert_allclose(np.asarray(r.x), np.asarray(r0.x),
                                rtol=1e-6, atol=1e-7)
-    # without a trace the SMEM cap does not gate large max_itrs
-    assert supports_fused(m, jnp.float32, "secded", 100_000,
-                          trace_rr=False)
+    assert np.asarray(r.rr_trace).shape == (1,)
 
 
 def test_fused_envelope():
-    m = dia_matrix("secded")
-    assert supports_fused(m, jnp.float32, "secded", 300)
-    # f64 / huge trace fall outside; constraints rides the lazy
-    # checksum schedule in-kernel since round 3
-    assert not supports_fused(m, jnp.float64, "secded", 300)
-    assert supports_fused(m, jnp.float32, "constraints", 300)
-    assert not supports_fused(m, jnp.float32, "secded", 100_000)
-    # non-1024-multiple row count (either layout)
+    """The kernel has no size or dtype envelope: a row count that no
+    block size divides and binary64 both stay on the kernel route and
+    match the jnp solve (DIA, on the plain live route, alongside)."""
     rows, cols, vals, n = spd_tridiagonal(100)
     a = assemble(cols, rows, vals, n, 1)
-    m3 = build_protected("csr", a, "secded")
-    assert m3.R % 1024 != 0
-    assert not supports_fused(m3, jnp.float32, "secded", 300)
-    m4 = build_protected("csr", assemble(cols, rows, vals, n, 1),
-                         "secded", force_exec="ell")
-    assert not supports_fused(m4, jnp.float32, "secded", 300)
-    # banded ELL inside the window/K envelope is supported
-    m5 = ell_matrix("secded")
-    assert supports_fused(m5, jnp.float32, "secded", 300)
+    for exec_ in (None, "ell"):
+        m = build_protected("csr", a, "secded", force_exec=exec_)
+        assert m.R % 1024 != 0
+        assert route_for(m, "gpu") == ("triton-ell" if exec_ else
+                                       "xla-live")
+        for dt in (jnp.float32, jnp.float64):
+            md = make_matrix_device(m, dt)
+            b = jnp.asarray(np.linspace(1, 2, m.R) * (np.arange(m.R) < n),
+                            dt)
+            ref = make_cg_solver(make_spmv(m, dt, "secded"), 300, 1e-8)
+            fus = make_cg_solver(make_pallas_spmv(m, dt, "secded",
+                                                  interpret=True), 300,
+                                 1e-8)
+            r0, r1 = jax.jit(ref)(md, b), jax.jit(fus)(md, b)
+            assert int(r1.stats.errcode) == 0
+            assert int(r1.iterations) == int(r0.iterations)
+            np.testing.assert_allclose(np.asarray(r1.x), np.asarray(r0.x),
+                                       rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("layout", ["dia", "ell"])
 @pytest.mark.parametrize("mode", ["none", "secded"])
 def test_fused_jacobi_matches_jnp(mode, layout):
-    """The preconditioned kernel variant (minv VMEM-resident, PCG
-    recurrences in-kernel) matches the jnp solver's Jacobi path."""
+    """Jacobi-preconditioned CG over the kernels matches the jnp
+    solver's Jacobi path."""
     m = make(layout, mode)
-    assert supports_fused(m, jnp.float32, mode, 300, precond=True)
-    md = make_matrix_device(m, jnp.float32)
+    md, ref, fus = solvers(m, mode)
     b = bvec(m)
-    d = m.diagonal()
-    mpad = np.zeros(m.R)
-    mpad[: m.N] = m.to_exec_order(
-        np.where(d != 0.0, 1.0 / np.where(d == 0, 1, d), 1.0))
-    minv = jnp.asarray(mpad, jnp.float32)
-    ref = jax.jit(make_cg_solver(make_spmv(m, jnp.float32, mode),
-                                 300, 1e-8))
-    fus = jax.jit(make_fused_solver(m, mode, 300, 1e-8, interpret=True,
-                                    precond=True))
+    minv = jacobi(m)
     r0, r1 = ref(md, b, minv), fus(md, b, minv)
     assert int(r1.stats.errcode) == 0
     assert int(r1.iterations) == int(r0.iterations)
@@ -264,27 +273,20 @@ def test_fused_jacobi_matches_jnp(mode, layout):
     k = int(r0.iterations)
     np.testing.assert_allclose(np.asarray(r1.rr_trace)[:k],
                                np.asarray(r0.rr_trace)[:k], rtol=1e-4)
-    # the unpreconditioned builder refuses minv and vice versa
-    plain = make_fused_solver(m, mode, 300, 1e-8, interpret=True)
-    with pytest.raises(ValueError):
-        plain(md, b, minv)
-    with pytest.raises(ValueError):
-        fus(md, b)
 
 
 def test_fused_checkpointed_solve(tmp_path):
-    """CheckpointedSolve over the megakernel: segment, snapshot, resume,
+    """CheckpointedSolve over the kernels: segment, snapshot, resume,
     same answer as the one-shot solve — incl. a scrub carried across
     segments (classify exactly once)."""
-    from abft_sparse_cg_tpu.solver.checkpoint import CheckpointedSolve
-    from abft_sparse_cg_tpu.solver.fused import make_fused_continue
+    from abft_sparse_cg.solver.checkpoint import CheckpointedSolve
 
     m = dia_matrix("secded")
     m2 = inject_bitflips(m, "ANY", 1, np.random.default_rng(5),
                          echo=lambda s: None)
     md = make_matrix_device(m2, jnp.float32)
     b = bvec(m)
-    cont = make_fused_continue(m, "secded", 1e-8, interpret=True)
+    cont = make_cg_continue(kernel_spmv(m, "secded"), 1e-8)
     runner = CheckpointedSolve(None, 1e-8, every=3,
                                path=str(tmp_path / "ck.npz"),
                                continue_fn=cont)
@@ -304,13 +306,12 @@ def test_fused_checkpointed_solve(tmp_path):
 def test_fused_respects_upto():
     """continue_(.., upto) stops exactly at the segment boundary and a
     second call finishes the solve (checkpoint contract)."""
-    from abft_sparse_cg_tpu.solver.cg import init_state
-    from abft_sparse_cg_tpu.solver.fused import make_fused_continue
+    from abft_sparse_cg.solver.cg import init_state
 
     m = dia_matrix("secded")
     md = make_matrix_device(m, jnp.float32)
     b = bvec(m)
-    cont = make_fused_continue(m, "secded", 1e-8, interpret=True)
+    cont = jax.jit(make_cg_continue(kernel_spmv(m, "secded"), 1e-8))
     s0 = init_state(b, 300)
     s1, md1 = cont(md, s0, jnp.int32(4))
     assert int(s1.itr) == 4
@@ -322,33 +323,14 @@ def test_fused_respects_upto():
                                rtol=1e-6, atol=1e-7)
 
 
-def test_fused_continue_rejects_oversized_trace():
-    """continue_fn callers outside the backend routing (e.g. a direct
-    CheckpointedSolve wiring) get a clean ValueError when the rr trace
-    would overflow the kernel's SMEM cap, instead of an obscure Mosaic
-    compile failure."""
-    from abft_sparse_cg_tpu.solver.cg import init_state
-    from abft_sparse_cg_tpu.solver.fused import (_MAX_TRACE_SMEM,
-                                                 make_fused_continue)
-
-    m = dia_matrix("secded")
-    md = make_matrix_device(m, jnp.float32)
-    b = bvec(m)
-    cont = make_fused_continue(m, "secded", 1e-8, interpret=True)
-    s0 = init_state(b, _MAX_TRACE_SMEM + 1)
-    with pytest.raises(ValueError, match="SMEM"):
-        cont(md, s0, jnp.int32(4))
-
-
 @pytest.mark.parametrize("layout", ["dia", "ell", "split"])
 def test_fused_constraints_lazy(layout):
-    """Constraints on the megakernel: the index-word checksum scan is
+    """Constraints through the kernels: the index-word checksum scan is
     the in-kernel trigger; classify runs the structural checks once.
     Clean solves match jnp; a violation fail-stops with the full
     oracle's code; a non-violating index change is adopted (checksum
     refresh) and the solve completes."""
     m = make(layout, "constraints")
-    assert supports_fused(m, jnp.float32, "constraints", 300)
     md, ref, fus = solvers(m, "constraints")
     b = bvec(m)
     r0, r1 = ref(md, b), fus(md, b)
@@ -401,23 +383,20 @@ def test_fused_constraints_adopts_benign_change():
 
 def wideband_matrix(mode, n=4096, b=2500, k=3, seed=2, fmt="csr"):
     """Uniformly wide band (utils.matgen.spd_wideband).  At test scale
-    RCM could reband it, so the build pins the natural order — the
-    rolled tier only cares that band > 1920."""
-    from abft_sparse_cg_tpu.utils.matgen import spd_wideband
+    RCM could reband it, so the build pins the natural order; band >
+    1920 makes x reads span a window of many row blocks."""
+    from abft_sparse_cg.utils.matgen import spd_wideband
 
     rows, cols, vals, n = spd_wideband(n, b, k, seed)
     a = assemble(cols, rows, vals, n, 1)
-    # force_exec pins ELL: round 5's natural route for wide uniform
-    # bands is the flat/Benes tier; these tests exercise the SCAN
-    # kernel specifically.
     m = build_protected(fmt, a, mode, reorder="none", force_exec="ell")
-    assert m.exec_kind == "ell" and m.R % 1024 == 0
+    assert m.exec_kind == "ell"
     assert m.band > 1920, m.band
     return m
 
 
 def test_fused_rolled_wideband_coo():
-    """Wideband through the megakernel with the COO layout (128-bit
+    """Wideband through the ELL kernel with the COO layout (128-bit
     codewords, 4 word planes): same iterates as jnp, fault corrected."""
     m = wideband_matrix("secded", fmt="coo")
     assert m.fmt == "coo"
@@ -438,15 +417,10 @@ def test_fused_rolled_wideband_coo():
 
 @pytest.mark.parametrize("mode", ["none", "secded"])
 def test_fused_rolled_wideband_matches_jnp(mode):
-    """Band > 1920: the megakernel's absolute-row window scan replaces
-    the unrolled shuffle — same iterates as jnp.  WROWS (41) exceeds
-    the chunk height (ROWS = 32), covering windows wider than a chunk."""
-    from abft_sparse_cg_tpu.solver.fused import _plan
-
+    """Band > 1920: the ELL kernel's indexed loads reach x across many
+    row blocks — same iterates as jnp."""
     m = wideband_matrix(mode)
-    plan = _plan(m, mode)
-    assert plan is not None and plan["rolled"] and plan["WROWS"] > 31
-    assert supports_fused(m, jnp.float32, mode, 300)
+    assert route_for(m, "gpu") == "triton-ell"
     md, ref, fus = solvers(m, mode)
     b = bvec(m)
     r0, r1 = ref(md, b), fus(md, b)
@@ -457,16 +431,11 @@ def test_fused_rolled_wideband_matches_jnp(mode):
 
 
 def test_fused_rolled_very_wide_band():
-    """WROWS well past the chunk height and deep into the rolled range
-    (band ~ 7000): the scan's ramp-up/down slices stay correct at
-    extreme geometry."""
-    from abft_sparse_cg_tpu.solver.fused import _plan
-
+    """Band ~ 7000 over 8192 rows and small row blocks: every block
+    reads x from most of the others."""
     m = wideband_matrix("none", n=8192, b=7000, k=2, seed=5)
-    plan = _plan(m, "none")
-    assert plan is not None and plan["rolled"]
-    assert plan["WROWS"] > plan["ROWS"] + 32, (plan["WROWS"], plan["ROWS"])
-    md, ref, fus = solvers(m, "none", max_itrs=60)
+    assert m.band > 4 * 1024
+    md, ref, fus = solvers(m, "none", max_itrs=60, block_rows=1024)
     b = bvec(m)
     r0, r1 = ref(md, b), fus(md, b)
     assert int(r1.iterations) == int(r0.iterations)
@@ -475,13 +444,14 @@ def test_fused_rolled_very_wide_band():
 
 
 # --------------------------------------------------------------------------
-# Lazy detection schedule (check_interval > 1): words stream every
-# CI-th iteration, snapshot-rollback on trigger
+# Lazy detection schedule (check_interval > 1): the detection stream
+# runs every CI-th iteration, snapshot-rollback on trigger
 # --------------------------------------------------------------------------
 
 def lazy_solver(m, mode, ci, max_itrs=300, conv=1e-8):
-    return jax.jit(make_fused_solver(m, mode, max_itrs, conv,
-                                     interpret=True, check_interval=ci))
+    product = make_pallas_product(m, jnp.float32, mode, interpret=True)
+    return jax.jit(make_lazy_ci_solver(kernel_spmv(m, mode), product, ci,
+                                       max_itrs, conv))
 
 
 @pytest.mark.parametrize("layout", ["dia", "ell", "split"])
@@ -526,24 +496,13 @@ def test_lazy_corrects_fault_via_rollback(layout, ci):
 
 
 def test_lazy_jacobi_corrects():
-    """Lazy schedule on the preconditioned kernel variant (11 resident
-    vectors: PCG set + M^-1 + snapshot): clean bit-exact vs live,
-    rollback correction bit-exact."""
+    """Lazy schedule with the Jacobi preconditioner: clean bit-exact vs
+    live, rollback correction bit-exact."""
     m = make("dia", "secded")
-    assert supports_fused(m, jnp.float32, "secded", 300, precond=True,
-                          check_interval=4)
-    md = make_matrix_device(m, jnp.float32)
+    md, _, live = solvers(m, "secded")
     b = bvec(m)
-    d = m.diagonal()
-    mpad = np.zeros(m.R)
-    mpad[: m.N] = m.to_exec_order(
-        np.where(d != 0.0, 1.0 / np.where(d == 0, 1, d), 1.0))
-    minv = jnp.asarray(mpad, jnp.float32)
-    live = jax.jit(make_fused_solver(m, "secded", 300, 1e-8,
-                                     interpret=True, precond=True))
-    lz = jax.jit(make_fused_solver(m, "secded", 300, 1e-8,
-                                   interpret=True, precond=True,
-                                   check_interval=4))
+    minv = jacobi(m)
+    lz = lazy_solver(m, "secded", 4)
     r0, r1 = live(md, b, minv), lz(md, b, minv)
     assert int(r1.stats.errcode) == 0
     assert int(r1.iterations) == int(r0.iterations)
@@ -560,16 +519,17 @@ def test_lazy_checkpointed_solve(tmp_path):
     """A lazy continue_fn under CheckpointedSolve: segments verify at
     their boundaries (exit pass), the mid-solve scrub still happens
     exactly once, same answer as the one-shot live solve."""
-    from abft_sparse_cg_tpu.solver.checkpoint import CheckpointedSolve
-    from abft_sparse_cg_tpu.solver.fused import make_fused_continue
+    from abft_sparse_cg.solver.checkpoint import CheckpointedSolve
 
     m = dia_matrix("secded")
     m2 = inject_bitflips(m, "ANY", 1, np.random.default_rng(5),
                          echo=lambda s: None)
     md = make_matrix_device(m2, jnp.float32)
     b = bvec(m)
-    cont = make_fused_continue(m, "secded", 1e-8, interpret=True,
-                               check_interval=4)
+    cont = make_lazy_ci_continue(
+        kernel_spmv(m, "secded"),
+        make_pallas_product(m, jnp.float32, "secded", interpret=True), 4,
+        1e-8)
     runner = CheckpointedSolve(None, 1e-8, every=3,
                                path=str(tmp_path / "ck.npz"),
                                continue_fn=cont)
@@ -652,11 +612,9 @@ def test_lazy_constraints_adopts_and_failstops():
 
 
 def test_fused_rolled_split_main():
-    """Bordered matrix whose banded core is ALSO wide-band: the split
-    megakernel runs with a rolled (absolute-scan) main + span-window
-    tail in one pallas_call, matching jnp and correcting a fault."""
-    from abft_sparse_cg_tpu.solver.fused import _plan
-
+    """Bordered matrix whose banded core is ALSO wide-band: the ELL
+    kernel on the main part + the plain-XLA span-window tail, matching
+    jnp and correcting a fault."""
     rng = np.random.default_rng(3)
     n = 4096
     rows, cols = [np.arange(n)], [np.arange(n)]
@@ -674,9 +632,8 @@ def test_fused_rolled_split_main():
     vals = np.where(rows == cols, 200.0, -1.0)
     a = assemble(cols, rows, vals, n, 1)
     m = build_protected("csr", a, "secded", reorder="none")
-    assert m.exec_kind == "split"
-    plan = _plan(m, "secded")
-    assert plan is not None and plan["rolled"]
+    assert m.exec_kind == "split" and m.main.band > 1920
+    assert route_for(m.main, "gpu") == "triton-ell"
     md, ref, fus = solvers(m, "secded")
     b = bvec(m)
     r0, r1 = ref(md, b), fus(md, b)
@@ -708,27 +665,23 @@ def test_fused_rolled_corrects_fault():
 
 
 # --------------------------------------------------------------------------
-# Streaming tier: p + r resident, x / w streamed through HBM
+# Multi-program grids: small row blocks that do not divide R, so the
+# last program is masked
 # --------------------------------------------------------------------------
 
-def solvers_streaming(m, mode, max_itrs=300, conv=1e-8, precond=False):
-    md = make_matrix_device(m, jnp.float32)
-    ref = jax.jit(make_cg_solver(make_spmv(m, jnp.float32, mode),
-                                 max_itrs, conv))
-    fus = jax.jit(make_fused_solver(m, mode, max_itrs, conv,
-                                    interpret=True, precond=precond,
-                                    force_streaming=True))
-    return md, ref, fus
+_RAGGED_N = 1100      # R = 1152: 4.5 blocks of 256 rows
+_RAGGED_BLOCK = 256
+
+
+def solvers_streaming(m, mode, max_itrs=300, conv=1e-8):
+    assert m.R % _RAGGED_BLOCK != 0
+    return solvers(m, mode, max_itrs, conv, block_rows=_RAGGED_BLOCK)
 
 
 @pytest.mark.parametrize("layout", ["dia", "ell", "rcm-ell"])
 @pytest.mark.parametrize("mode", ["none", "sed", "sec7", "sec8", "secded"])
 def test_streaming_matches_jnp_clean(mode, layout):
-    from abft_sparse_cg_tpu.solver.fused import _plan
-
-    m = make(layout, mode)
-    plan = _plan(m, mode, force_streaming=True)
-    assert plan is not None and plan["streaming"]
+    m = make(layout, mode, _RAGGED_N)
     md, ref, fus = solvers_streaming(m, mode)
     b = bvec(m)
     r0, r1 = ref(md, b), fus(md, b)
@@ -745,7 +698,7 @@ def test_streaming_matches_jnp_clean(mode, layout):
 @pytest.mark.parametrize("layout", ["dia", "ell"])
 @pytest.mark.parametrize("mode", ["sec8", "secded"])
 def test_streaming_corrects_fault_and_resumes(mode, layout):
-    m = make(layout, mode)
+    m = make(layout, mode, _RAGGED_N)
     md, _, fus = solvers_streaming(m, mode)
     b = bvec(m)
     clean = fus(md, b)
@@ -763,17 +716,15 @@ def test_streaming_corrects_fault_and_resumes(mode, layout):
 
 @pytest.mark.parametrize("layout", ["dia", "ell"])
 def test_streaming_lazy_schedule(layout):
-    """check_interval > 1 on the streaming tier: HBM snapshots, clean
-    solve bit-exact vs live, fault corrected via rollback."""
-    from abft_sparse_cg_tpu.solver.fused import _plan
-
-    m = make(layout, "secded")
-    plan = _plan(m, "secded", force_streaming=True, check_interval=4)
-    assert plan is not None and plan["streaming"] and plan["ci"] == 4
+    """check_interval > 1 over a masked multi-program grid: clean solve
+    bit-exact vs live, fault corrected via rollback."""
+    m = make(layout, "secded", _RAGGED_N)
     md, _, fus = solvers_streaming(m, "secded")
-    lazy = jax.jit(make_fused_solver(m, "secded", 300, 1e-8,
-                                     interpret=True, force_streaming=True,
-                                     check_interval=4))
+    product = make_pallas_product(m, jnp.float32, "secded",
+                                  interpret=True, block_rows=_RAGGED_BLOCK)
+    lazy = jax.jit(make_lazy_ci_solver(
+        kernel_spmv(m, "secded", block_rows=_RAGGED_BLOCK), product, 4,
+        300, 1e-8))
     b = bvec(m)
     clean = fus(md, b)
     r4 = lazy(md, b)
@@ -790,7 +741,7 @@ def test_streaming_lazy_schedule(layout):
 
 
 def test_streaming_sed_detects_and_halts():
-    m = dia_matrix("sed")
+    m = ell_matrix("sed", _RAGGED_N)
     md, ref, fus = solvers_streaming(m, "sed")
     b = bvec(m)
     m2 = inject_bitflips(m, "ANY", 1, np.random.default_rng(3),
@@ -802,20 +753,18 @@ def test_streaming_sed_detects_and_halts():
 
 
 def test_streaming_breakdown_guard():
-    """A discarded (broken-down) iteration must leave x/r/p bit-intact:
-    phase 2a computes rr1 without mutating, 2b/3 never run."""
-    m = dia_matrix("none")
+    """A discarded (broken-down) iteration leaves x/r/p intact."""
+    m = ell_matrix("none", _RAGGED_N)
     planes = {k: v.copy() for k, v in m.planes.items()}
-    from abft_sparse_cg_tpu.ecc.values import planes_to_f64_np
+    from abft_sparse_cg.ecc.values import planes_to_f64_np
     vals = planes_to_f64_np(planes["value_lo"], planes["value_hi"])
     neg = (-vals).view(np.uint64)
     planes["value_lo"] = (neg & 0xFFFFFFFF).astype(np.uint32)
     planes["value_hi"] = (neg >> 32).astype(np.uint32)
     m2 = m.with_planes(planes)
     md = make_matrix_device(m2, jnp.float32)
-    fus = jax.jit(make_fused_solver(m2, "none", 100, 1e-8,
-                                    interpret=True,
-                                    force_streaming=True))
+    fus = jax.jit(make_cg_solver(
+        kernel_spmv(m2, "none", block_rows=_RAGGED_BLOCK), 100, 1e-8))
     r = fus(md, bvec(m))
     assert int(r.stats.errcode) == ERR_BREAKDOWN
     assert int(r.iterations) == 0
@@ -823,20 +772,10 @@ def test_streaming_breakdown_guard():
 
 @pytest.mark.parametrize("mode", ["none", "secded"])
 def test_streaming_jacobi_matches_jnp(mode):
-    """Jacobi on the streaming tier: M^-1 chunks re-stream in phases
-    2a and 3."""
-    m = dia_matrix(mode)
-    md = make_matrix_device(m, jnp.float32)
+    m = ell_matrix(mode, _RAGGED_N)
+    md, ref, fus = solvers_streaming(m, mode)
     b = bvec(m)
-    d = m.diagonal()
-    mpad = np.zeros(m.R)
-    mpad[: m.N] = m.to_exec_order(
-        np.where(d != 0.0, 1.0 / np.where(d == 0, 1, d), 1.0))
-    minv = jnp.asarray(mpad, jnp.float32)
-    ref = jax.jit(make_cg_solver(make_spmv(m, jnp.float32, mode),
-                                 300, 1e-8))
-    fus = jax.jit(make_fused_solver(m, mode, 300, 1e-8, interpret=True,
-                                    precond=True, force_streaming=True))
+    minv = jacobi(m)
     r0, r1 = ref(md, b, minv), fus(md, b, minv)
     assert int(r1.stats.errcode) == 0
     assert int(r1.iterations) == int(r0.iterations)
@@ -844,21 +783,33 @@ def test_streaming_jacobi_matches_jnp(mode):
                                rtol=1e-6, atol=1e-7)
 
 
-def test_streaming_plan_auto_routes_past_vmem():
-    """A matrix whose resident vectors exceed the VMEM budget plans
-    onto the streaming tier automatically (supports_fused stays True so
-    the pallas backend keeps the megakernel at -b 100 scale); split
-    stays out (the tail needs the resident w)."""
+def test_kernel_grid_at_bench_scale_lowers_for_cuda():
+    """At the -b 100 size (8,192,000 rows) the ELL kernel is one
+    pallas_call over 8,000 row-block programs, and it lowers to the
+    Triton custom call for CUDA — traced from shapes alone, nothing is
+    allocated."""
     import types
 
-    from abft_sparse_cg_tpu.solver.fused import _plan
+    from abft_sparse_cg.ops import spmv_pallas
+    from abft_sparse_cg.ops.spmv import MatrixDevice
 
-    m = dia_matrix("secded")
-    big = types.SimpleNamespace(exec_kind="dia", R=8192 * 1000,
-                                dia_offsets=(-1, 0, 1),
-                                layout=m.layout, fmt="csr")
-    plan = _plan(big, "secded")
-    assert plan is not None and plan["streaming"]
-    assert supports_fused(big, jnp.float32, "secded", 500)
-    small = _plan(m, "secded")
-    assert small is not None and not small["streaming"]
+    m = ell_matrix("secded")
+    R, K = 8192 * 1000, 3
+    big = types.SimpleNamespace(exec_kind="ell", R=R, N=R, K=K,
+                                layout=m.layout, perm=None,
+                                ell_gather_word=m.ell_gather_word,
+                                fmt="csr", mode="secded")
+    fast_pw = spmv_pallas._make_kernel(big, "secded", False, True)
+    u32 = jnp.uint32
+    words = tuple(jax.ShapeDtypeStruct((K, R), u32)
+                  for _ in m.layout.word_names)
+    md = MatrixDevice(
+        words=words, ell_len=jax.ShapeDtypeStruct((R,), jnp.int32),
+        cksum=None, values=jax.ShapeDtypeStruct((K, R), jnp.float32),
+        fold=jax.ShapeDtypeStruct((K, R), u32),
+        fold_ck=jax.ShapeDtypeStruct((1, R // 8), u32))
+    x = jax.ShapeDtypeStruct((R,), jnp.float32)
+    text = jax.jit(fast_pw).trace(md, x).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert text.count("__gpu$xla.gpu.triton") == 1
+    assert "tensor<8000xi32>" in text       # one trigger flag per program

@@ -5,10 +5,10 @@ products, solutions, and every observable fault event."""
 import numpy as np
 import pytest
 
-from abft_sparse_cg_tpu.backends import available, create
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.inject import BITFLIP_KINDS, inject_bitflips
-from abft_sparse_cg_tpu.ops.spmv import spmv_dense_oracle
+from abft_sparse_cg.backends import available, create
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.inject import BITFLIP_KINDS, inject_bitflips
+from abft_sparse_cg.ops.spmv import spmv_dense_oracle
 
 MODES = ("none", "constraints", "sed", "sec7", "sec8", "secded")
 HAVE_CPU = ("cpu", "none") in available()

@@ -1,9 +1,8 @@
-"""Solver-level lazy --check-interval schedule on the per-iteration
-kernel tiers (single-device and shard_map), interpret mode.
+"""Solver-level lazy --check-interval schedule of the pallas target:
+the Triton kernel in interpret mode on one device, the plain live
+version under a GSPMD mesh.
 
-The megakernel has its own in-kernel lazy schedule (tests/test_fused.py
-test_lazy_*); this file covers the tiers OUTSIDE its envelope: unchecked
-iterations run the detection-free product kernel
+Unchecked iterations run the detection-free product
 (ops.spmv_pallas.make_pallas_product), checks every CI-th iteration,
 snapshot rollback on trigger (solver.cg.make_lazy_ci_continue).
 """
@@ -14,16 +13,16 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from abft_sparse_cg_tpu.backends import create
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.inject import inject_bitflips
-from abft_sparse_cg_tpu.ops.spmv import make_matrix_device
-from abft_sparse_cg_tpu.ops.spmv_pallas import (
+from abft_sparse_cg.backends import create
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.inject import inject_bitflips
+from abft_sparse_cg.ops.spmv import make_matrix_device
+from abft_sparse_cg.ops.spmv_pallas import (
     make_pallas_product,
     make_pallas_spmv,
 )
-from abft_sparse_cg_tpu.solver.cg import make_cg_solver, make_lazy_ci_solver
-from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal
+from abft_sparse_cg.solver.cg import make_cg_solver, make_lazy_ci_solver
+from abft_sparse_cg.utils.matgen import spd_tridiagonal
 
 RNG = np.random.default_rng(17)
 
@@ -92,15 +91,14 @@ def test_lazy_periter_rollback_corrects(config):
 
 
 def test_lazy_periter_wideband():
-    """The wideband (absolute-scan) per-iteration kernel has a product
-    variant too: lazy clean == live bit-exact, fault rolled back."""
-    from abft_sparse_cg_tpu.utils.matgen import spd_wideband
+    """A wide band through the ELL kernel and its product variant:
+    lazy clean == live bit-exact, fault rolled back."""
+    from abft_sparse_cg.utils.matgen import spd_wideband
 
     rows, cols, vals, n = spd_wideband(4096, 2200)
     a = assemble(cols, rows, vals, n, 1)
     m = build_protected("csr", a, "secded", reorder="none",
-                        force_exec="ell")   # pin the scan kernel (r5:
-    #                                         natural route is Benes)
+                        force_exec="ell")
     assert m.exec_kind == "ell" and m.band > 1920
     run_lazy, run_live = _solvers(m, "secded", 4)
     b = RNG.random(m.N)
@@ -172,8 +170,8 @@ def test_lazy_periter_checkpointed_solve(tmp_path):
     mid-CI-window, each segment's entry state is verified (the previous
     segment's exit pass), and a fault injected before a later segment
     is rolled back within it."""
-    from abft_sparse_cg_tpu.solver.cg import make_lazy_ci_continue
-    from abft_sparse_cg_tpu.solver.checkpoint import CheckpointedSolve
+    from abft_sparse_cg.solver.cg import make_lazy_ci_continue
+    from abft_sparse_cg.solver.checkpoint import CheckpointedSolve
 
     m = _mat("secded")
     impl = make_pallas_spmv(m, jnp.float32, "secded", interpret=True)
@@ -206,9 +204,9 @@ def test_lazy_periter_checkpointed_solve(tmp_path):
     np.testing.assert_array_equal(np.asarray(seg2.x), np.asarray(seg.x))
 
 
-def test_lazy_periter_shardmap_backend():
+def test_lazy_periter_gspmd_backend():
     """--check-interval > 1 with --devices N rides the lazy schedule on
-    the shard_map kernel tier (env knobs force interpret off-TPU)."""
+    the GSPMD program of the plain live version."""
     import os
 
     rows, cols, vals, n = spd_tridiagonal(8192)
@@ -217,7 +215,6 @@ def test_lazy_periter_shardmap_backend():
     b = RNG.random(m.N)
     ref = create("jnp", "secded").solve(m, b, 200, 1e-6, verbose=False,
                                         dtype="f32")
-    os.environ["ABFT_SM_INTERPRET"] = "1"
     os.environ["ABFT_CHECK_INTERVAL"] = "4"
     try:
         res = create("pallas", "secded").solve(m, b, 200, 1e-6,
@@ -229,8 +226,8 @@ def test_lazy_periter_shardmap_backend():
                                               verbose=False, dtype="f32",
                                               devices=8)
     finally:
-        os.environ.pop("ABFT_SM_INTERPRET", None)
         os.environ.pop("ABFT_CHECK_INTERVAL", None)
+    assert res.route == "xla-live (gspmd)"
     assert not res.failed
     assert res.iterations == ref.iterations
     np.testing.assert_allclose(res.x, ref.x, rtol=2e-5, atol=1e-7)
@@ -261,7 +258,7 @@ def test_check_interval_env_validation():
     obscure int() traceback buried in solver construction."""
     import os
 
-    from abft_sparse_cg_tpu.backends.pallas_backend import _check_interval
+    from abft_sparse_cg.backends.pallas_backend import _check_interval
 
     os.environ["ABFT_CHECK_INTERVAL"] = "fast"
     try:
@@ -274,31 +271,14 @@ def test_check_interval_env_validation():
 
 
 def test_check_interval_auto_policy(monkeypatch):
-    """`--check-interval auto` resolves to the measured per-tier winner
-    (VERDICT r4 item 3 / BENCH_NOTES fold-era tables): LIVE (1) on the
-    VMEM-resident megakernel tier, ci32 on the streaming tier and on
-    call sites that declare a streaming-shaped default (shard_map)."""
-    from abft_sparse_cg_tpu.backends.pallas_backend import _check_interval
-    from abft_sparse_cg_tpu.solver import fused
+    """`--check-interval auto` resolves to the live schedule (1) until
+    the ledger picks another interval; the pipelined solver has no
+    lazy variant at all."""
+    from abft_sparse_cg.backends.pallas_backend import _check_interval
 
     monkeypatch.setenv("ABFT_CHECK_INTERVAL", "auto")
-    # No tier context: live unless the call site says otherwise.
     assert _check_interval() == 1
-    assert _check_interval(auto_default=32) == 32
-    # Pipelined has no lazy variant at all.
-    assert _check_interval("pipelined", auto_default=32) == 1
-
-    m = _mat("secded", n=512, blocks=2)
-    # Resident-envelope matrix: the plan is non-streaming -> live.
-    plan = fused._plan(m, "secded", check_interval=1)
-    assert plan is not None and not plan["streaming"]
-    assert _check_interval("standard", m, "secded") == 1
-    # Streaming tier (patched plan -- building a >2.7M-row matrix in a
-    # unit test is not worth it): auto -> 32.
-    monkeypatch.setattr(fused, "_plan",
-                        lambda *a, **k: dict(streaming=True))
-    assert _check_interval("standard", m, "secded") == 32
-    # Outside every megakernel envelope (plan None): streaming-shaped
-    # word traffic -> 32.
-    monkeypatch.setattr(fused, "_plan", lambda *a, **k: None)
-    assert _check_interval("standard", m, "secded") == 32
+    assert _check_interval("pipelined") == 1
+    monkeypatch.setenv("ABFT_CHECK_INTERVAL", "8")
+    assert _check_interval() == 8
+    assert _check_interval("pipelined") == 1

@@ -4,8 +4,7 @@ refresh does not clear it) must fail-stop after one retry instead of
 re-entering the kernel forever.
 
 The realistic route to this state is a kernel or hardware miscompute of
-the detection signal itself — the wideband Mosaic fault that motivated
-the guard.  Faults in the *stored* checksum plane are NOT phantoms:
+the detection signal itself.  Faults in the *stored* checksum plane are NOT phantoms:
 classify refreshes checksums from the (corrected) word planes, so the
 retry runs clean (pinned by test_cksum_corruption_heals below).
 """
@@ -13,14 +12,15 @@ retry runs clean (pinned by test_cksum_corruption_heals below).
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.ops import spmv as spmv_mod
-from abft_sparse_cg_tpu.ops.spmv import ERR_PHANTOM, SpmvStats, make_matrix_device
-from abft_sparse_cg_tpu.solver.cg import CGState, _lazy_exit_resolve
-from abft_sparse_cg_tpu.solver.fused import make_fused_solver
-from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.ops.spmv import ERR_PHANTOM, SpmvStats, make_matrix_device
+from abft_sparse_cg.ops.spmv_pallas import make_pallas_spmv
+from abft_sparse_cg.solver.cg import (CGState, _lazy_exit_resolve,
+                                      make_cg_solver)
+from abft_sparse_cg.utils.matgen import spd_tridiagonal
 
 RNG = np.random.default_rng(7)
 
@@ -134,21 +134,16 @@ def test_lazy_exit_resolve_benign_adoption_not_phantom():
 
 
 @pytest.mark.parametrize("mode", ["sec7", "secded"])
-def test_fused_phantom_failstop(monkeypatch, mode):
-    """Megakernel outer loop: persistent trigger + no-op classify ->
-    ERR_PHANTOM fail-stop (pre-guard this livelocked).  The trigger is
-    forced by corrupting the stored cksum baseline while classify is
-    patched to NOT refresh it."""
+def test_fused_phantom_failstop(mode):
+    """The live schedule's outer loop over the kernel: persistent
+    trigger + no-op classify -> ERR_PHANTOM fail-stop (without the guard
+    this livelocks).  The trigger is forced by corrupting the stored
+    cksum baseline while classify is replaced by one that does NOT
+    refresh it."""
     m = _mat(mode)
-    real_make = spmv_mod.make_spmv
-
-    def patched(mat, dtype=jnp.float32, mode=None):
-        impl = real_make(mat, dtype, mode)
-        return impl._replace(
-            classify=lambda md: (SpmvStats.clean(), md))
-
-    monkeypatch.setattr(spmv_mod, "make_spmv", patched)
-    fus = make_fused_solver(m, mode, 50, 1e-8, interpret=True)
+    impl = make_pallas_spmv(m, jnp.float32, mode, interpret=True)
+    impl = impl._replace(classify=lambda md: (SpmvStats.clean(), md))
+    fus = jax.jit(make_cg_solver(impl, 50, 1e-8))
     md = make_matrix_device(m, jnp.float32)
     md = _corrupt_baseline(md)
     b = jnp.asarray(RNG.random(m.R), jnp.float32)
@@ -163,7 +158,8 @@ def test_cksum_corruption_heals(mode):
     productive repair: the scrub refreshes checksums and the retried
     solve converges clean (no phantom, no corrections)."""
     m = _mat(mode)
-    fus = make_fused_solver(m, mode, 50, 1e-8, interpret=True)
+    fus = jax.jit(make_cg_solver(
+        make_pallas_spmv(m, jnp.float32, mode, interpret=True), 50, 1e-8))
     md = make_matrix_device(m, jnp.float32)
     md = _corrupt_baseline(md)
     b = jnp.asarray(RNG.random(m.R), jnp.float32)

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from abft_sparse_cg_tpu.backends import create
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.inject import inject_bitflips
-from abft_sparse_cg_tpu.utils.matgen import spd_laplacian_2d, spd_tridiagonal
+from abft_sparse_cg.backends import create
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.inject import inject_bitflips
+from abft_sparse_cg.utils.matgen import spd_laplacian_2d, spd_tridiagonal
 
 RNG = np.random.default_rng(404)
 
@@ -89,7 +89,7 @@ def test_pipelined_sed_detects_and_halts():
 
 
 def test_pipelined_breakdown_guard():
-    from abft_sparse_cg_tpu.ops.spmv import ERR_BREAKDOWN
+    from abft_sparse_cg.ops.spmv import ERR_BREAKDOWN
 
     n = 32
     idx = np.arange(n)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from abft_sparse_cg_tpu.backends import create
-from abft_sparse_cg_tpu.formats import assemble, build_protected
+from abft_sparse_cg.backends import create
+from abft_sparse_cg.formats import assemble, build_protected
 
 RNG = np.random.default_rng(17)
 

@@ -28,10 +28,10 @@ pytestmark = pytest.mark.skipif(
     reason="reference source or toolchain unavailable",
 )
 
-from abft_sparse_cg_tpu.backends import create  # noqa: E402
-from abft_sparse_cg_tpu.formats import build_protected, load_matrix  # noqa: E402
-from abft_sparse_cg_tpu.utils.glibc_rand import glibc_rand, glibc_rand_uniform  # noqa: E402
-from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal, write_mm_triangle  # noqa: E402
+from abft_sparse_cg.backends import create  # noqa: E402
+from abft_sparse_cg.formats import build_protected, load_matrix  # noqa: E402
+from abft_sparse_cg.utils.glibc_rand import glibc_rand, glibc_rand_uniform  # noqa: E402
+from abft_sparse_cg.utils.matgen import spd_tridiagonal, write_mm_triangle  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -107,7 +107,7 @@ def test_residual_trajectory_matches_reference(ref_exes, fmt, mode, target):
 
 def _flip_same(m, index, bits):
     """Apply the reference's exact injected flips to our matrix."""
-    from abft_sparse_cg_tpu.ecc import codec
+    from abft_sparse_cg.ecc import codec
 
     words = codec.flip_bits(m.words_list(), index, bits, m.layout)
     return m.with_planes(dict(zip(m.layout.word_names, words)))

@@ -12,9 +12,9 @@ each round and recovers f64-level accuracy with f32 inner solves.
 import numpy as np
 import pytest
 
-from abft_sparse_cg_tpu.backends import create
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.utils.matzoo import aniso_laplace_2d
+from abft_sparse_cg.backends import create
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.utils.matzoo import aniso_laplace_2d
 
 
 @pytest.fixture(scope="module")
@@ -55,7 +55,7 @@ def test_f32_stalls_and_refinement_recovers(illcond):
 def test_refine_aborts_on_fail_stop(illcond):
     """An uncorrectable detection inside an inner solve must abort
     refinement with the fail-stop result (ABFT wins)."""
-    from abft_sparse_cg_tpu.inject import inject_bitflips
+    from abft_sparse_cg.inject import inject_bitflips
 
     a, m, b = illcond
     m2 = inject_bitflips(m, "ANY", 2, np.random.default_rng(5),
@@ -69,7 +69,7 @@ def test_refine_aborts_on_fail_stop(illcond):
 def test_refine_corrects_single_fault(illcond):
     """A correctable fault is corrected inside the inner solve and
     refinement proceeds to the f64-level answer."""
-    from abft_sparse_cg_tpu.inject import inject_bitflips
+    from abft_sparse_cg.inject import inject_bitflips
 
     a, m, b = illcond
     m1 = inject_bitflips(m, "ANY", 1, np.random.default_rng(7),
@@ -83,7 +83,7 @@ def test_refine_corrects_single_fault(illcond):
 
 
 def test_refine_cli_flag():
-    from abft_sparse_cg_tpu import cli
+    from abft_sparse_cg import cli
 
     params = cli.parse_arguments(["--refine", "3"], "csr")
     assert params["refine"] == 3
@@ -96,8 +96,8 @@ def test_refine_rejects_checkpoint(tmp_path, capsys):
     up front (ADVICE r4)."""
     import pytest
 
-    from abft_sparse_cg_tpu import cli
-    from abft_sparse_cg_tpu.utils.matgen import (
+    from abft_sparse_cg import cli
+    from abft_sparse_cg.utils.matgen import (
         spd_tridiagonal,
         write_mm_triangle,
     )

@@ -1,7 +1,7 @@
 """RCM exec-space reordering: band recovery, solve parity, fault parity.
 
-The reorder layer (formats/reorder.py) is the TPU-native replacement for
-the reference's general-case gather kernel (CSR/CPUContext.cpp:115-133):
+The reorder layer (formats/reorder.py) stands in for the reference's
+general-case gather kernel (CSR/CPUContext.cpp:115-133):
 a matrix that is banded up to a symmetric permutation gets its band back
 at build time, unlocking the stencil/window fast paths.  Everything
 reference-visible (canonical indices, ECC events, injection banners,
@@ -11,17 +11,17 @@ solutions) must be unchanged by the permutation.
 import numpy as np
 import pytest
 
-from abft_sparse_cg_tpu.backends import create
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.formats.reorder import (
+from abft_sparse_cg.backends import create
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.formats.reorder import (
     _rcm_numpy,
     bandwidth,
     inverse_permutation,
     rcm_permutation,
 )
-from abft_sparse_cg_tpu.inject import inject_bitflips
-from abft_sparse_cg_tpu.ops.spmv import spmv_dense_oracle
-from abft_sparse_cg_tpu.utils.matgen import (
+from abft_sparse_cg.inject import inject_bitflips
+from abft_sparse_cg.ops.spmv import spmv_dense_oracle
+from abft_sparse_cg.utils.matgen import (
     shuffle_labels,
     spd_laplacian_2d,
     spd_tridiagonal,
@@ -170,19 +170,13 @@ def test_permuted_correction_recovers_exact_solution():
     np.testing.assert_allclose(res.x, clean.x, rtol=1e-12)
 
 
-def test_rcm_adoption_bound_matches_wideband_kernel_cap():
+def test_rcm_adoption_bound_matches_split_whole_bound():
     """formats.protected._BAND_KERNEL_MAX (the RCM adoption bound) must
-    equal the wideband kernels' acceptance cap: window rows
-    2*(side/128)+1 <= _ELL_WIDE_MAX_WROWS.  A looser bound would adopt
-    a reordering 'for the kernel tier' that every kernel then declines,
-    silently riding the serialized XLA gather."""
-    from abft_sparse_cg_tpu.formats.protected import _BAND_KERNEL_MAX
-    from abft_sparse_cg_tpu.ops.spmv_pallas import _ELL_WIDE_MAX_WROWS
-    from abft_sparse_cg_tpu.solver.fused import _FUSED_MAX_WROWS
+    equal the band split's whole-matrix bound (formats.split
+    ._ROLLED_MAX_BAND): otherwise the split would decline a cut in
+    favour of a whole-matrix ordering that the build then refuses to
+    adopt."""
+    from abft_sparse_cg.formats.protected import _BAND_KERNEL_MAX
+    from abft_sparse_cg.formats.split import _ROLLED_MAX_BAND
 
-    side = -(-_BAND_KERNEL_MAX // 128) * 128
-    assert 2 * (side // 128) + 1 <= min(_ELL_WIDE_MAX_WROWS,
-                                        _FUSED_MAX_WROWS)
-    # ...and the bound is tight: one more 128-block is over the cap.
-    assert 2 * (side // 128 + 1) + 1 > max(_ELL_WIDE_MAX_WROWS,
-                                           _FUSED_MAX_WROWS)
+    assert _BAND_KERNEL_MAX == _ROLLED_MAX_BAND

@@ -1,33 +1,22 @@
-"""Layout/tier routing decision table.
+"""Layout and route decision table.
 
-`build_protected` auto-selects the execution layout and the backends
-route each layout to a kernel tier; these heuristics ARE the general-
-matrix story on TPU (README "Scatter/gather-free execution layouts"),
-so this table pins the decision for every matrix archetype a user is
-likely to feed in.  A regression that silently drops an archetype from
-its compiled tier to the serialized XLA-gather fallback (measured ~44x
-slower at bench scale) fails here, not in a benchmark six weeks later.
-
-The expectations are the VERIFIED behavior (empirically confirmed, then
-pinned):
+`build_protected` auto-selects the execution layout and the pallas
+target routes each layout (ops.spmv_pallas.route_for): ELL takes the
+Triton kernel on a GPU, DIA and flat take the plain live version, split
+composites combine their parts' routes.  This table pins the decision
+for every matrix archetype a user is likely to feed in:
   - 1-D chain / 2-D Poisson / 3-D 7-point Poisson / 2-D periodic
     Poisson -> DIA (few distinct offsets; no offset-magnitude cap)
   - label-shuffled chain -> RCM recovers the tridiagonal -> DIA + perm
-  - uniformly wide band (1920 < b <= 16256) -> ELL wideband scan
+  - uniformly wide band (1920 < b <= 16256) -> ELL
   - bordered (a few dense rows) -> split (banded main + span-window
     tail)
   - banded + random sparse matching -> RCM compresses the matching
     into the band -> permuted ELL (the cost model keeps it whole)
-  - uniform random at n <= 16256 -> RCM + wideband ELL (everything is
-    "in band" when the whole matrix fits one window)
-  - band > 16256 with no RCM recovery -> band-split with a WIDE
-    scan-tier main (the calibrated cost model cuts near the 16256 cap:
-    scan selects are ~17x cheaper per entry than tail gathers, so the
-    main soaks up everything it can reach)
-
-`row_align=1024` (what the CLI passes for the pallas target) must make
-every non-split kernel archetype megakernel-eligible: the fused plan
-needs R % 1024 == 0 (solver.fused._plan).
+  - uniform random at n <= 24576 -> RCM recovers a band under 16256 ->
+    permuted ELL
+  - band > 16256 with no RCM recovery -> band-split with a wide main
+    (the cost model cuts near the 16256 cap)
 """
 
 import numpy as np
@@ -35,10 +24,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.ops.spmv_pallas import supports
-from abft_sparse_cg_tpu.solver.fused import supports_fused
-from abft_sparse_cg_tpu.utils.matgen import (
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.ops.spmv_pallas import route_for, route_name
+from abft_sparse_cg.utils.matgen import (
     shuffle_labels,
     spd_denseband,
     spd_laplacian_2d,
@@ -150,90 +138,91 @@ def wide_past_cap(n=65536, band=20000):
 
 
 CASES = [
-    # name, builder, kw, expected exec_kind, kernel tier, permuted
+    # name, builder, kw, expected exec_kind, permuted
     ("chain", lambda: _sym_assemble(*spd_tridiagonal(512), blocks=2),
-     {}, "dia", True, False),
+     {}, "dia", False),
     ("poisson2d", lambda: _sym_assemble(*spd_laplacian_2d(40)),
-     {}, "dia", True, False),
-    ("poisson3d", stencil_3d, {}, "dia", True, False),
-    ("periodic2d", periodic_2d, {}, "dia", True, False),
+     {}, "dia", False),
+    ("poisson3d", stencil_3d, {}, "dia", False),
+    ("periodic2d", periodic_2d, {}, "dia", False),
     ("shuffled-chain",
      lambda: _sym_assemble(*shuffle_labels(*spd_tridiagonal(1024), seed=3)),
-     {}, "dia", True, True),
-    # Round 5: a wide uniform band WHOLE-matrix candidate now prefers
-    # the flat/Benes route over the rolled scan (measured 2.8x at band
-    # 2499 bench scale; formats.split.benes_beats_rolled).
+     {}, "dia", True),
     ("wideband", lambda: _sym_assemble(*spd_wideband(8192, 2500)),
-     {"reorder": "none"}, "flat", True, False),
-    ("bordered", bordered, {}, "split", True, False),
-    ("band+matching", band_plus_matching, {}, "ell", True, True),
-    ("uniform-random", uniform_random, {}, "flat", True, True),
+     {"reorder": "none"}, "ell", False),
+    ("bordered", bordered, {}, "split", False),
+    ("band+matching", band_plus_matching, {}, "ell", True),
+    ("uniform-random", uniform_random, {}, "ell", True),
     # RCM compresses even this to band < 16256: the whole matrix must
-    # stay on the wideband kernel — NOT get a fat-tail split (the
-    # fallback-regime cut search must never fire when some ordering
-    # keeps a whole-matrix kernel).
+    # stay whole — NOT get a fat-tail split (the fallback-regime cut
+    # search must never fire when some ordering keeps the band under
+    # the cap).
     ("uniform-random-24k", lambda: uniform_random(24576), {},
-     "flat", True, True),
+     "ell", True),
     ("wide-past-cap", wide_past_cap, {"reorder": "none"},
-     "split", True, False),
-    # High-degree families (round-4 slot-cap lift): a dense band of
-    # half-width h has exactly one entry per offset, so h <= 63 (D =
-    # 2h+1 <= 128 distinct offsets) rides DIA; beyond that it is the
-    # high-K ELL case the K <= 512 slot envelope now carries — the
-    # reference's row gather handles any degree uniformly
+     "split", False),
+    # High-degree families: a dense band of half-width h has exactly one
+    # entry per offset, so h <= 63 (D = 2h+1 <= 128 distinct offsets)
+    # rides DIA; beyond that it is the high-K ELL case — the reference's
+    # row gather handles any degree uniformly
     # (CSR/CPUContext.cpp:115-133), so none of these may fall off the
-    # compiled tiers.
+    # banded layouts.
     ("denseband-d65",
      lambda: _sym_assemble(*spd_denseband(512, 32)),
-     {"reorder": "none"}, "dia", True, False),
+     {"reorder": "none"}, "dia", False),
     ("denseband-k129",
      lambda: _sym_assemble(*spd_denseband(512, 64)),
-     {"reorder": "none"}, "ell", True, False),
+     {"reorder": "none"}, "ell", False),
     ("denseband-k255",
      lambda: _sym_assemble(*spd_denseband(512, 127)),
-     {"reorder": "none"}, "ell", True, False),
+     {"reorder": "none"}, "ell", False),
 ]
 
 
-@pytest.mark.parametrize("name,builder,kw,kind,kernel,permuted",
+def gpu_route(m):
+    """The pallas target's route on a GPU: the Triton kernel for ELL
+    planes, the plain live version for every other layout."""
+    return "triton-ell" if m.exec_kind == "ell" else "xla-live"
+
+
+@pytest.mark.parametrize("name,builder,kw,kind,permuted",
                          CASES, ids=[c[0] for c in CASES])
-def test_layout_and_tier_routing(name, builder, kw, kind, kernel,
-                                 permuted):
+def test_layout_and_tier_routing(name, builder, kw, kind, permuted):
     m = build_protected("csr", builder(), "secded", **kw)
     assert m.exec_kind == kind, (name, m.exec_kind)
     assert (m.perm is not None) == permuted, name
 
     if kind == "split":
-        # The banded main part carries the kernel tier; the tail is
+        # The banded main part carries the main route; the tail is
         # flat (the border's outlier entries or the out-of-band rest).
         assert m.main.exec_kind in ("dia", "ell"), name
-        assert supports(m.main, jnp.float32) == kernel, name
+        assert route_for(m.main, "gpu") == gpu_route(m.main), name
         assert m.tail.exec_kind == "flat", name
     else:
-        assert supports(m, jnp.float32) == kernel, (name, m.band, m.K)
+        assert route_for(m, "gpu") == gpu_route(m), (name, m.band, m.K)
 
 
-@pytest.mark.parametrize("name,builder,kw,kind,kernel,permuted",
+@pytest.mark.parametrize("name,builder,kw,kind,permuted",
                          CASES, ids=[c[0] for c in CASES])
-def test_cli_row_align_unlocks_megakernel(name, builder, kw, kind,
-                                          kernel, permuted):
-    """With the CLI's pallas-target row_align=1024, every kernel-tier
-    archetype also fits a fused (whole-solve) plan — periodic wrap
-    (DIA offsets past one chunk of halo) rides the hardware-validated
-    big-offset mode; the one documented hole is split composites
-    without a bordered dense-tail plan (fat band-split tails)."""
-    m = build_protected("csr", builder(), "secded", row_align=1024, **kw)
+def test_gpu_route_table(name, builder, kw, kind, permuted):
+    """The route each archetype takes on a GPU (and on the CPU, where
+    every layout takes the plain live version), with the row alignment
+    the CLI passes for a four-device mesh: alignment changes no
+    layout and no route."""
+    m = build_protected("csr", builder(), "secded", row_align=128 * 4,
+                        **kw)
     assert m.exec_kind == kind, (name, m.exec_kind)
-    fused = supports_fused(m, jnp.float32, "secded", 1000)
-    # Flat/Benes-tier matrices have no fused megakernel (per-iteration
-    # kernels per row block); fat band-split tails are the other
-    # documented hole.
-    expect = kernel and kind != "flat" and name != "wide-past-cap"
-    assert fused == expect, (name, fused)
+    if kind == "split":
+        expect = f"split({gpu_route(m.main)}+xla-live)"
+    else:
+        expect = gpu_route(m)
+    assert route_name(m, "gpu") == expect, name
+    assert "triton" not in route_name(m, "cpu"), name
+    assert route_name(m, "gspmd") == "xla-live (gspmd)"
 
 
 def _assert_composite_spmv_exact(m, a):
-    from abft_sparse_cg_tpu.ops.spmv import make_matrix_device, make_spmv
+    from abft_sparse_cg.ops.spmv import make_matrix_device, make_spmv
 
     impl = make_spmv(m, jnp.float64)
     md = make_matrix_device(m, jnp.float64)
@@ -250,15 +239,14 @@ def _assert_composite_spmv_exact(m, a):
 
 
 def test_band_split_past_cap_picks_scan_tier_main():
-    """Band > 16256 with no narrow ordering: the calibrated cost model
-    (scan tier ~17x cheaper per entry-window-row than the unrolled
-    shuffle, BENCH_CALIB.jsonl) cuts WIDE — a scan-tier main soaking up
-    most entries beats gathering them at ~12 ns each — and the
-    composite SpMV stays exact: composite vs direct COO."""
+    """Band > 16256 with no narrow ordering: the cost model cuts WIDE —
+    a wide main soaking up most entries beats gathering them in the
+    tail — and the composite SpMV stays exact: composite vs direct
+    COO."""
     a = wide_past_cap()
     m = build_protected("csr", a, "secded", reorder="none")
     assert m.exec_kind == "split"
-    assert m.main.band > 1920          # scan-tier main, not a thin cut
+    assert m.main.band > 1920          # a wide main, not a thin cut
     assert m.tail.nnz > 0
     _assert_composite_spmv_exact(m, a)
 

@@ -5,11 +5,11 @@ import pytest
 
 import jax
 
-from abft_sparse_cg_tpu.backends import create
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.inject import inject_bitflips
-from abft_sparse_cg_tpu.parallel.sharded import default_mesh, solve_sharded
-from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal
+from abft_sparse_cg.backends import create
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.inject import inject_bitflips
+from abft_sparse_cg.parallel.sharded import default_mesh, solve_sharded
+from abft_sparse_cg.utils.matgen import spd_tridiagonal
 
 RNG = np.random.default_rng(99)
 
@@ -102,7 +102,7 @@ def test_devices_ell_fault_events_match_single(mode):
 
 def test_devices_flag_permuted_matrix():
     """RCM-permuted matrix through the sharded backend path."""
-    from abft_sparse_cg_tpu.utils.matgen import shuffle_labels
+    from abft_sparse_cg.utils.matgen import shuffle_labels
 
     tri = shuffle_labels(*spd_tridiagonal(64), seed=5)
     a = assemble(tri[1], tri[0], tri[2], tri[3], 4)
@@ -215,15 +215,16 @@ def test_devices_flag_rejected_for_native_target():
         backend.solve(m, b, 100, 1e-8, verbose=False, devices=8)
 
 
-# ---- shard_map kernel tier (parallel.sharded_kernel) ------------------
+# ---- the pallas target on a mesh: GSPMD over the plain live version ----
 #
-# The per-iteration Pallas kernels under shard_map with the two-edge
-# ppermute halo exchange — interpret mode on the virtual mesh here; the
-# pallas backend routes `--devices N` through the compiled form on TPU.
+# A Triton custom call has no SPMD partitioning rule, so `--devices N`
+# on the pallas target runs the live version (detection re-read every
+# iteration) as one GSPMD program; these cases check it against the
+# single-device jnp solve on the virtual mesh.
 
 
 def _kernel_mat(force=None, shuffle=False, mode="secded", n=8192):
-    from abft_sparse_cg_tpu.utils.matgen import shuffle_labels
+    from abft_sparse_cg.utils.matgen import shuffle_labels
 
     tri = spd_tridiagonal(n)
     if shuffle:
@@ -232,33 +233,29 @@ def _kernel_mat(force=None, shuffle=False, mode="secded", n=8192):
     return build_protected("csr", a, mode, force_exec=force)
 
 
-def _shardmap_solvers(m, mode, max_itrs=200, conv=1e-6):
+def _gspmd_solvers(m, mode, max_itrs=200, conv=1e-6, dtype=None):
     import jax.numpy as jnp
 
-    from abft_sparse_cg_tpu.ops.spmv import make_matrix_device, make_spmv
-    from abft_sparse_cg_tpu.parallel.sharded import _device_put_sharded
-    from abft_sparse_cg_tpu.parallel.sharded_kernel import (
-        make_shardmap_spmv,
-        supports_shardmap,
-    )
-    from abft_sparse_cg_tpu.solver.cg import make_cg_solver
+    from abft_sparse_cg.ops.spmv import make_matrix_device, make_spmv
+    from abft_sparse_cg.ops.spmv_pallas import make_pallas_spmv
+    from abft_sparse_cg.parallel.sharded import _device_put_sharded
+    from abft_sparse_cg.solver.cg import make_cg_solver
 
-    assert supports_shardmap(m, jnp.float32, 8)
+    dt = dtype or jnp.float32
     mesh = default_mesh(8)
-    impl = make_shardmap_spmv(m, mesh, jnp.float32, mode, interpret=True)
+    impl = make_pallas_spmv(m, dt, mode, platform="gspmd")
     sm = jax.jit(make_cg_solver(impl, max_itrs, conv))
-    ref = jax.jit(make_cg_solver(make_spmv(m, jnp.float32, mode),
-                                 max_itrs, conv))
+    ref = jax.jit(make_cg_solver(make_spmv(m, dt, mode), max_itrs, conv))
 
     def run_sm(mat, b):
-        md, bdev, _ = _device_put_sharded(mat, b, mesh, jnp.float32)
+        md, bdev, _ = _device_put_sharded(mat, b, mesh, dt)
         return sm(md, bdev, None)
 
     def run_ref(mat, b):
-        md = make_matrix_device(mat, jnp.float32)
+        md = make_matrix_device(mat, dt)
         bpad = np.zeros(mat.R)
         bpad[: mat.N] = mat.to_exec_order(b)
-        return ref(md, jnp.asarray(bpad, jnp.float32), None)
+        return ref(md, jnp.asarray(bpad, dt), None)
 
     return run_sm, run_ref
 
@@ -267,14 +264,14 @@ def _shardmap_solvers(m, mode, max_itrs=200, conv=1e-6):
     ("dia", "secded"), ("ell", "secded"), ("ell-perm", "secded"),
     ("dia", "none"), ("dia", "constraints"), ("ell", "sec7"),
 ])
-def test_shardmap_kernel_matches_single_device(config, mode):
-    """Per-shard kernels + halo exchange reproduce the single-device
-    solve (same iterations, same solution) for both layouts, permuted
-    gather indices, and every signal schedule."""
+def test_gspmd_live_matches_single_device(config, mode):
+    """The sharded live program reproduces the single-device solve (same
+    iterations, same solution) for both layouts, permuted gather
+    indices, and every signal schedule."""
     force = None if config == "dia" else "ell"
     m = _kernel_mat(force=force, shuffle=(config == "ell-perm"), mode=mode)
     assert m.exec_kind == ("dia" if config == "dia" else "ell")
-    run_sm, run_ref = _shardmap_solvers(m, mode)
+    run_sm, run_ref = _gspmd_solvers(m, mode)
     b = RNG.random(m.N)
     r0, r1 = run_ref(m, b), run_sm(m, b)
     assert int(r1.stats.errcode) == 0
@@ -284,13 +281,13 @@ def test_shardmap_kernel_matches_single_device(config, mode):
 
 
 @pytest.mark.parametrize("config", ["dia", "ell", "ell-perm"])
-def test_shardmap_kernel_corrects_fault(config):
-    """An injected single-bit fault triggers the psum'd in-kernel
-    signal; the GSPMD classify corrects it on the sharded planes and
-    the resumed solve matches the clean one bit-for-bit."""
+def test_gspmd_live_corrects_fault(config):
+    """An injected single-bit fault triggers the reduced live signal;
+    the GSPMD classify corrects it on the sharded planes and the resumed
+    solve matches the clean one bit-for-bit."""
     force = None if config == "dia" else "ell"
     m = _kernel_mat(force=force, shuffle=(config == "ell-perm"))
-    run_sm, _ = _shardmap_solvers(m, "secded")
+    run_sm, _ = _gspmd_solvers(m, "secded")
     b = RNG.random(m.N)
     clean = run_sm(m, b)
     m2 = inject_bitflips(m, "ANY", 1, np.random.default_rng(4),
@@ -302,25 +299,17 @@ def test_shardmap_kernel_corrects_fault(config):
     np.testing.assert_array_equal(np.asarray(r.x), np.asarray(clean.x))
 
 
-def test_shardmap_kernel_wideband():
-    """Band > 1920 rides the per-iteration wideband (absolute-scan)
-    kernel under shard_map: the halo exchange carries the full SIDE
-    rows and the sharded solve matches single-device."""
-    from abft_sparse_cg_tpu.ops.spmv_pallas import (
-        _ELL_MAX_WROWS,
-        _ell_window,
-    )
-
-    from abft_sparse_cg_tpu.utils.matgen import spd_wideband
+def test_gspmd_live_wideband():
+    """Band > 1920: the sharded gather reaches across shards and the
+    solve matches single-device."""
+    from abft_sparse_cg.utils.matgen import spd_wideband
 
     rows, cols, vals, n = spd_wideband(24576, 2500)
     a = assemble(cols, rows, vals, n, 1)
     m = build_protected("csr", a, "secded", reorder="none",
-                        force_exec="ell")   # pin the scan kernel (r5:
-    #                                         natural route is Benes)
+                        force_exec="ell")
     assert m.exec_kind == "ell" and m.band > 1920
-    assert _ell_window(m)[1] > _ELL_MAX_WROWS
-    run_sm, run_ref = _shardmap_solvers(m, "secded")
+    run_sm, run_ref = _gspmd_solvers(m, "secded")
     bv = RNG.random(m.N)
     r0, r1 = run_ref(m, bv), run_sm(m, bv)
     assert int(r1.stats.errcode) == 0
@@ -329,19 +318,14 @@ def test_shardmap_kernel_wideband():
                                rtol=2e-5, atol=1e-7)
 
 
-def test_shardmap_kernel_split_composite():
-    """Bordered composite under shard_map: the banded main part runs the
-    per-shard kernels, the flat tail the entry-sharded GSPMD program;
-    fault correction works across both parts and matches single-device."""
-    import jax.numpy as jnp
-
-    from abft_sparse_cg_tpu.parallel.sharded_kernel import supports_shardmap
-
+def test_gspmd_live_split_composite():
+    """Bordered composite on the mesh: the banded main part row-sharded,
+    the flat tail entry-sharded; fault correction works across both
+    parts and matches single-device."""
     a = _bordered(n=8000)
-    m = build_protected("csr", a, "secded", row_align=1024 * 8)
+    m = build_protected("csr", a, "secded", row_align=128 * 8)
     assert m.exec_kind == "split" and m.R == 8192
-    assert supports_shardmap(m, jnp.float32, 8)
-    run_sm, run_ref = _shardmap_solvers(m, "secded")
+    run_sm, run_ref = _gspmd_solvers(m, "secded")
     b = RNG.random(m.N)
     r0, r1 = run_ref(m, b), run_sm(m, b)
     assert int(r1.stats.errcode) == 0
@@ -350,7 +334,7 @@ def test_shardmap_kernel_split_composite():
     # of small-magnitude elements land ~1e-3 relative apart at conv=1e-6.
     np.testing.assert_allclose(np.asarray(r1.x), np.asarray(r0.x),
                                rtol=2e-3, atol=5e-6)
-    # A fault in either part is detected by the psum'd signals and
+    # A fault in either part is detected by the reduced signals and
     # corrected by the (sharded) GSPMD classify.
     for seed in (4, 11):
         m2 = inject_bitflips(m, "ANY", 1, np.random.default_rng(seed),
@@ -361,9 +345,9 @@ def test_shardmap_kernel_split_composite():
         np.testing.assert_array_equal(np.asarray(rf.x), np.asarray(r1.x))
 
 
-def test_shardmap_kernel_sed_failstop():
+def test_gspmd_live_sed_failstop():
     m = _kernel_mat(mode="sed")
-    run_sm, _ = _shardmap_solvers(m, "sed")
+    run_sm, _ = _gspmd_solvers(m, "sed")
     b = RNG.random(m.N)
     m2 = inject_bitflips(m, "ANY", 1, np.random.default_rng(6),
                          echo=lambda s: None)
@@ -372,18 +356,19 @@ def test_shardmap_kernel_sed_failstop():
     assert int(r.iterations) == 0
 
 
-def test_shardmap_envelope():
+def test_gspmd_live_has_no_envelope():
+    """The mesh route takes binary64 and 512-row shards alike."""
     import jax.numpy as jnp
 
-    from abft_sparse_cg_tpu.parallel.sharded_kernel import supports_shardmap
-
-    m = _kernel_mat()
-    assert supports_shardmap(m, jnp.float32, 8)
-    # f64 / single device / shards not 1024-aligned fall outside
-    assert not supports_shardmap(m, jnp.float64, 8)
-    assert not supports_shardmap(m, jnp.float32, 1)
-    m2 = _kernel_mat(n=4096)  # R_loc = 512
-    assert not supports_shardmap(m2, jnp.float32, 8)
+    m = _kernel_mat(n=4096)               # 512 rows per device
+    run_sm, run_ref = _gspmd_solvers(m, "secded", dtype=jnp.float64,
+                                     conv=1e-12)
+    b = RNG.random(m.N)
+    r0, r1 = run_ref(m, b), run_sm(m, b)
+    assert int(r1.stats.errcode) == 0
+    assert int(r1.iterations) == int(r0.iterations)
+    np.testing.assert_allclose(np.asarray(r1.x), np.asarray(r0.x),
+                               rtol=1e-10, atol=1e-13)
 
 
 def test_row_align_build():
@@ -403,21 +388,15 @@ def test_row_align_build():
         build_protected("csr", a, "secded", row_align=1000)
 
 
-def test_row_align_unlocks_shardmap_kernel():
-    """An N whose natural R is not 1024*ndev-aligned rides the shard_map
-    kernel tier when built with row_align — and matches the unaligned
-    single-device solve."""
-    import jax.numpy as jnp
-
-    from abft_sparse_cg_tpu.parallel.sharded_kernel import supports_shardmap
-
+def test_row_align_gspmd_live():
+    """An N whose natural R is not a multiple of 8 devices' alignment
+    builds with the CLI's row_align and the sharded live solve matches
+    the single-device one."""
     rows, cols, vals, n = spd_tridiagonal(4000)
     a = assemble(cols, rows, vals, n, 1)
-    assert not supports_shardmap(
-        build_protected("csr", a, "secded"), jnp.float32, 8)
-    m = build_protected("csr", a, "secded", row_align=1024 * 8)
-    assert supports_shardmap(m, jnp.float32, 8)
-    run_sm, run_ref = _shardmap_solvers(m, "secded")
+    m = build_protected("csr", a, "secded", row_align=128 * 8)
+    assert m.R % (128 * 8) == 0
+    run_sm, run_ref = _gspmd_solvers(m, "secded")
     b = RNG.random(m.N)
     r0, r1 = run_ref(m, b), run_sm(m, b)
     assert int(r1.stats.errcode) == 0
@@ -458,16 +437,16 @@ def test_row_align_split_composite():
     np.testing.assert_allclose(res.x, single.x, rtol=1e-5, atol=1e-9)
 
 
-def test_shardmap_backend_routing(monkeypatch):
-    """`--devices 8` on the pallas target rides the shard_map kernel
-    tier (env knob forces interpret mode off-TPU)."""
-    monkeypatch.setenv("ABFT_SM_INTERPRET", "1")
+def test_gspmd_backend_routing():
+    """`--devices 8` on the pallas target rides the GSPMD live program
+    and names that route in the result."""
     m = _kernel_mat()
     b = RNG.random(m.N)
     res = create("pallas", "secded").solve(m, b, 200, 1e-6, verbose=False,
                                            dtype="f32", devices=8)
     ref = create("jnp", "secded").solve(m, b, 200, 1e-6, verbose=False,
                                         dtype="f32")
+    assert res.route == "xla-live (gspmd)"
     assert not res.failed
     assert res.iterations == ref.iterations
     np.testing.assert_allclose(res.x, ref.x, rtol=2e-5, atol=1e-7)

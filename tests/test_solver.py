@@ -3,15 +3,15 @@
 import numpy as np
 import pytest
 
-from abft_sparse_cg_tpu.backends import create
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.inject import inject_bitflips
-from abft_sparse_cg_tpu.ops.spmv import (
+from abft_sparse_cg.backends import create
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.inject import inject_bitflips
+from abft_sparse_cg.ops.spmv import (
     ERR_DOUBLE,
     ERR_SED,
     spmv_dense_oracle,
 )
-from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal
+from abft_sparse_cg.utils.matgen import spd_tridiagonal
 
 RNG = np.random.default_rng(2024)
 
@@ -146,7 +146,8 @@ def test_constraints_catch_index_corruption():
 
 
 def test_f32_compute_converges():
-    """TPU dtype: f32 compute reaches the reference's default threshold."""
+    """f32 compute (the default on a GPU) reaches the reference's
+    default threshold."""
     a = tri_assembled(n=512, blocks=4)
     m = build_protected("csr", a, "secded")
     b = RNG.random(m.N)
@@ -167,7 +168,7 @@ def test_cg_breakdown_fails_loudly(mode):
     """An indefinite matrix must raise ERR_BREAKDOWN, not NaN-as-converged
     (the reference divides by pw unguarded, cg.cpp:102).  Covers both the
     simple loop (none) and the lazy detect-fast loop (secded)."""
-    from abft_sparse_cg_tpu.ops.spmv import ERR_BREAKDOWN
+    from abft_sparse_cg.ops.spmv import ERR_BREAKDOWN
 
     n = 32
     idx = np.arange(n)
@@ -208,9 +209,9 @@ def test_constraints_lazy_schedule_machinery():
     would consume a non-violating index change silently."""
     import jax.numpy as jnp
 
-    from abft_sparse_cg_tpu.ops.spmv import make_matrix_device
+    from abft_sparse_cg.ops.spmv import make_matrix_device
 
-    from abft_sparse_cg_tpu.ops.spmv import make_spmv
+    from abft_sparse_cg.ops.spmv import make_spmv
 
     a = tri_assembled(n=64, blocks=2)
     m = build_protected("csr", a, "constraints")
@@ -279,18 +280,17 @@ def test_constraints_lazy_schedule_machinery():
 
 @pytest.mark.parametrize("fmt", ["csr", "coo"])
 def test_constraints_lazy_pallas_kernels(fmt):
-    """The pallas per-iteration kernels stream only the index words for
+    """The pallas kernels read only the index words' checksums for
     constraints; interpret-mode parity with the jnp schedule."""
     import jax.numpy as jnp
 
-    from abft_sparse_cg_tpu.ops.spmv import make_matrix_device
-    from abft_sparse_cg_tpu.ops.spmv_pallas import (make_pallas_spmv,
-                                                    stream_words)
+    from abft_sparse_cg.ops.spmv import make_matrix_device
+    from abft_sparse_cg.ops.spmv_pallas import _signals, make_pallas_spmv
 
     a = tri_assembled(n=512, blocks=2)
     for force in ("dia", "ell"):
         m = build_protected(fmt, a, "constraints", force_exec=force)
-        sw = stream_words("constraints", m.layout, m.fmt)
+        _, _, sw = _signals(m, "constraints", detect=True)
         names = [m.layout.word_names[i] for i in sw]
         assert "value_lo" not in names and "value_hi" not in names
         impl = make_pallas_spmv(m, jnp.float32, "constraints",
@@ -300,7 +300,7 @@ def test_constraints_lazy_pallas_kernels(fmt):
         x = jnp.asarray(RNG.standard_normal(m.R), jnp.float32)
         w, trig = impl.fast(md, x)
         assert not bool(trig)
-        from abft_sparse_cg_tpu.ops.spmv import spmv_dense_oracle
+        from abft_sparse_cg.ops.spmv import spmv_dense_oracle
         np.testing.assert_allclose(
             np.asarray(w)[: m.N],
             spmv_dense_oracle(m, np.asarray(x, np.float64)[: m.N]),

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from abft_sparse_cg_tpu.backends import available, create
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.inject import inject_bitflips
-from abft_sparse_cg_tpu.ops.spmv import spmv_dense_oracle
-from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal
+from abft_sparse_cg.backends import available, create
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.inject import inject_bitflips
+from abft_sparse_cg.ops.spmv import spmv_dense_oracle
+from abft_sparse_cg.utils.matgen import spd_tridiagonal
 
 RNG = np.random.default_rng(909)
 
@@ -97,7 +97,7 @@ def test_split_tail_dense_fast_path(blocks):
     solution bit-identical to the clean solve."""
     import jax.numpy as jnp
 
-    from abft_sparse_cg_tpu.ops.spmv import make_matrix_device
+    from abft_sparse_cg.ops.spmv import make_matrix_device
 
     a = bordered(blocks=blocks)
     m = build_protected("csr", a, "secded")
@@ -203,7 +203,7 @@ def test_split_pipelined_solver():
 def _tail_like(entries, n=1024):
     """Build a tail-shaped flat ProtectedMatrix from explicit (row, col)
     entries WITHOUT the loader's symmetrization (coverage tests)."""
-    from abft_sparse_cg_tpu.formats.loader import AssembledMatrix
+    from abft_sparse_cg.formats.loader import AssembledMatrix
 
     rows = np.array([r for r, _ in entries], dtype=np.int64)
     cols = np.array([c for _, c in entries], dtype=np.int64)
@@ -225,7 +225,7 @@ def test_dense_tail_plan_requires_window_coverage():
     assembly (an entry whose mirror is missing) would otherwise be
     silently dropped by the device-side densify with no detection
     signal."""
-    from abft_sparse_cg_tpu.ops.spmv import dense_tail_plan
+    from abft_sparse_cg.ops.spmv import dense_tail_plan
 
     out = 3
     sym = [(out, c) for c in range(10)] + [(c, out) for c in range(10)

@@ -1,11 +1,10 @@
-"""Unstructured/expander SpMV — the Benes permutation-route kernel
-tier (ops.spmv_unstructured), interpret mode.
+"""Unstructured/expander SpMV on the pallas target: the flat exec
+layout rides the plain live version (XLA gather + segment-sum, the
+detection stream re-read every iteration) on every platform.
 
 Pins the product against the dense oracle on matrices with no banded
-structure (the flat exec layout), the detection/heal contract on
-injected faults, the lazy detection-free product, and the routing
-through make_pallas_spmv.  Hardware perf rides scripts/zoo_bench.py
-(powerlaw-graph family); these tests own correctness.
+structure, the detection/heal contract on injected faults, the lazy
+detection-free product, and the routing through make_pallas_spmv.
 """
 
 import numpy as np
@@ -14,20 +13,16 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.inject import inject_bitflips
-from abft_sparse_cg_tpu.ops.spmv import (
+from abft_sparse_cg.formats import assemble, build_protected
+from abft_sparse_cg.inject import inject_bitflips
+from abft_sparse_cg.ops.spmv import (
     make_matrix_device,
     make_spmv,
     spmv_dense_oracle,
 )
-from abft_sparse_cg_tpu.ops.spmv_pallas import make_pallas_spmv
-from abft_sparse_cg_tpu.ops.spmv_unstructured import (
-    make_unstructured_spmv,
-    unstructured_plan,
-    wants_unstructured,
-)
-from abft_sparse_cg_tpu.solver.cg import make_cg_solver
+from abft_sparse_cg.ops.spmv_pallas import (make_pallas_product,
+                                            make_pallas_spmv, route_for)
+from abft_sparse_cg.solver.cg import make_cg_solver
 
 RNG = np.random.default_rng(7)
 
@@ -51,6 +46,11 @@ def random_graph(n=300, edges=900, seed=3, fmt="csr", mode="secded"):
     return build_protected(fmt, a, mode, force_exec="flat")
 
 
+def make_unstructured_spmv(m, dtype, mode):
+    """The pallas target's SpMV for a flat matrix, routed as on a GPU."""
+    return make_pallas_spmv(m, dtype, mode, platform="gpu")
+
+
 def exec_product(m, impl, xc):
     xe = np.zeros(m.R, np.float32)
     xe[: m.N] = m.to_exec_order(xc)
@@ -68,9 +68,8 @@ def exec_product(m, impl, xc):
 ])
 def test_product_matches_oracle(fmt, mode):
     m = random_graph(fmt=fmt, mode=mode)
-    assert m.exec_kind == "flat" and wants_unstructured(m)
-    impl = make_unstructured_spmv(m, jnp.float32, mode, interpret=True)
-    assert impl is not None
+    assert m.exec_kind == "flat" and route_for(m, "gpu") == "xla-live"
+    impl = make_unstructured_spmv(m, jnp.float32, mode)
     xc = RNG.random(m.N)
     w, trig = exec_product(m, impl, xc)
     oracle = spmv_dense_oracle(m, xc)
@@ -83,7 +82,7 @@ def test_matches_jnp_flat_bitexact():
     """Identical arithmetic ordering is not required, but the result
     must agree with the jnp flat path to f32 roundoff on every row."""
     m = random_graph()
-    ui = make_unstructured_spmv(m, jnp.float32, "secded", interpret=True)
+    ui = make_unstructured_spmv(m, jnp.float32, "secded")
     ji = make_spmv(m, jnp.float32, "secded")
     xc = RNG.random(m.N)
     wu, _ = exec_product(m, ui, xc)
@@ -92,17 +91,12 @@ def test_matches_jnp_flat_bitexact():
                                atol=1e-5 * np.abs(wj).max())
 
 
-def test_pallas_routing_picks_unstructured():
-    """make_pallas_spmv routes flat matrices to the Benes tier (and the
-    detection-free product exists for the lazy schedule)."""
-    from abft_sparse_cg_tpu.ops.spmv_pallas import make_pallas_product
-
+def test_pallas_routing_picks_xla_live():
+    """make_pallas_spmv routes flat matrices to the plain live version
+    (and the detection-free product exists for the lazy schedule)."""
     m = random_graph()
     impl = make_pallas_spmv(m, jnp.float32, "secded", interpret=True)
-    # The unstructured impl's fast path needs md.unstr; the jnp flat
-    # fallback would not — probe via the device arrays.
     md = make_matrix_device(m, jnp.float32)
-    assert md.unstr is not None
     xe = np.zeros(m.R, np.float32)
     xe[: m.N] = m.to_exec_order(RNG.random(m.N))
     w, trig = impl.fast(md, jnp.asarray(xe))
@@ -114,23 +108,13 @@ def test_pallas_routing_picks_unstructured():
     assert not bool(trig2)
 
 
-def test_env_gate_disables(monkeypatch):
-    m = random_graph()
-    monkeypatch.setenv("ABFT_NO_UNSTR", "1")
-    assert not wants_unstructured(m)
-    assert make_unstructured_spmv(m, jnp.float32, "secded",
-                                  interpret=True) is None
-
-
 def test_solver_detects_corrects_and_heals():
-    """Full CG on the kernel tier with an injected fault: trigger
-    fires, classify corrects AND re-derives the kernel's col-sorted
-    planes (md.unstr heals), and the solve converges to the clean
-    solution."""
+    """Full CG on the flat route with an injected fault: the live
+    trigger fires, classify corrects and re-derives the device planes,
+    and the solve converges to the clean solution."""
     m = random_graph(n=256, edges=700, seed=11)
     b = RNG.random(m.N)
-    impl = make_unstructured_spmv(m, jnp.float32, "secded",
-                                  interpret=True)
+    impl = make_unstructured_spmv(m, jnp.float32, "secded")
     solver = jax.jit(make_cg_solver(impl, 400, 1e-8))
 
     def run(mat):
@@ -153,7 +137,7 @@ def test_solver_detects_corrects_and_heals():
 def test_sed_detects_and_failstops():
     m = random_graph(n=256, edges=700, seed=11, mode="sed")
     b = RNG.random(m.N)
-    impl = make_unstructured_spmv(m, jnp.float32, "sed", interpret=True)
+    impl = make_unstructured_spmv(m, jnp.float32, "sed")
     solver = jax.jit(make_cg_solver(impl, 400, 1e-8))
     m2 = inject_bitflips(m, "ANY", 1, np.random.default_rng(5),
                          echo=lambda s: None)
@@ -164,9 +148,9 @@ def test_sed_detects_and_failstops():
     assert int(res.stats.errcode) != 0
 
 
-def test_hub_rows_split_and_recombine():
-    """A star graph (one hub touching every node) exceeds the slot cap;
-    the hub row splits into virtual rows whose partials recombine."""
+def test_hub_row_matches_oracle():
+    """A star graph (one hub touching every node): the hub row's
+    1,200 entries reduce through the segment-sum like any other."""
     n = 1200
     r = np.arange(1, n)
     c = np.zeros(n - 1, np.int64)
@@ -179,11 +163,7 @@ def test_hub_rows_split_and_recombine():
     vv = np.concatenate([vals, dv + 1.0])
     m = build_protected("csr", assemble(cols, rows, vv, n, 1),
                         "secded", force_exec="flat")
-    plan = unstructured_plan(m)
-    assert any(len(bp["extras_rows"]) >= 1
-               for bp in plan["blocks"])    # hub split happened
-    impl = make_unstructured_spmv(m, jnp.float32, "secded",
-                                  interpret=True)
+    impl = make_unstructured_spmv(m, jnp.float32, "secded")
     xc = RNG.random(m.N)
     w, _ = exec_product(m, impl, xc)
     oracle = spmv_dense_oracle(m, xc)
@@ -191,24 +171,15 @@ def test_hub_rows_split_and_recombine():
                                atol=1e-5 * np.abs(oracle).max())
 
 
-def test_plan_cache_by_content():
-    m1 = random_graph(seed=21)
-    m2 = random_graph(seed=21)
-    assert unstructured_plan(m1) is unstructured_plan(m2)
-
-
 def test_lazy_ci_clean_matches_live():
-    """The lazy --check-interval schedule on the Benes tier: unchecked
-    iterations run the detection-free product (make_pallas_product
-    routes flat to the detect=False unstructured impl) — clean solves
-    are bit-exact vs the live schedule."""
-    from abft_sparse_cg_tpu.ops.spmv_pallas import make_pallas_product
-    from abft_sparse_cg_tpu.solver.cg import make_lazy_ci_solver
+    """The lazy --check-interval schedule on the flat route: unchecked
+    iterations run the detection-free product — clean solves track the
+    live schedule."""
+    from abft_sparse_cg.solver.cg import make_lazy_ci_solver
 
     m = random_graph(n=256, edges=700, seed=11)
     b = RNG.random(m.N)
-    impl = make_unstructured_spmv(m, jnp.float32, "secded",
-                                  interpret=True)
+    impl = make_unstructured_spmv(m, jnp.float32, "secded")
     product = make_pallas_product(m, jnp.float32, "secded",
                                   interpret=True)
     assert product is not None
@@ -221,40 +192,9 @@ def test_lazy_ci_clean_matches_live():
     r1, r2 = live(md, bdev), lazy(md, bdev)
     assert int(r1.stats.errcode) == 0 and int(r2.stats.errcode) == 0
     assert int(r1.iterations) == int(r2.iterations)
-    # The products are bit-equal (test_pallas_routing asserts it); the
-    # two loop bodies still compile separately and XLA may reassociate
-    # a BLAS-1 reduction differently, so the trajectories track to
-    # ulp-level rather than bit-exactly on this tier.
+    # The products are bit-equal (test_pallas_routing_picks_xla_live
+    # asserts it); the two loop bodies still compile separately and XLA
+    # may reassociate a BLAS-1 reduction differently, so the
+    # trajectories track to ulp-level rather than bit-exactly.
     np.testing.assert_allclose(np.asarray(r1.x), np.asarray(r2.x),
                                rtol=2e-6, atol=2e-7)
-
-
-def test_multiblock_partitioning(monkeypatch):
-    """Row-block partitioning (matrices past the single-kernel compile
-    envelope get one kernel per contiguous 128-row block; w is the
-    concatenation).  Forced here with a tiny block target so the
-    interpret-mode cost stays sane."""
-    import abft_sparse_cg_tpu.ops.spmv_unstructured as su
-
-    monkeypatch.setattr(su, "_BLOCK_TARGET", 4096)
-    su._PLAN_CACHE.clear()
-    try:
-        m = random_graph(n=640, edges=2500, seed=99)
-        plan = unstructured_plan(m)
-        assert len(plan["blocks"]) >= 2
-        # Blocks tile the rows contiguously at 128 alignment.
-        assert plan["spans"][0][0] == 0
-        assert plan["spans"][-1][1] == m.R
-        for (a, b, _e0, _e1), (c, _d, _e, _f) in zip(
-                plan["spans"], plan["spans"][1:]):
-            assert b == c and a % 128 == 0
-        impl = make_unstructured_spmv(m, jnp.float32, "secded",
-                                      interpret=True)
-        xc = RNG.random(m.N)
-        w, trig = exec_product(m, impl, xc)
-        oracle = spmv_dense_oracle(m, xc)
-        assert not trig
-        np.testing.assert_allclose(w, oracle, rtol=1e-5,
-                                   atol=1e-5 * np.abs(oracle).max())
-    finally:
-        su._PLAN_CACHE.clear()

@@ -8,8 +8,8 @@ glibc-rand b) and must agree on the iteration count and the printed
 rr trajectory.  This pins the f64 semantics on every structural
 shape; the f32 kernel-tier iteration counts may legitimately differ
 on ill-conditioned families (powerlaw: 26 vs 21 at f32 — the README
-Precision guidance case for --refine), so f32 parity is recorded by
-scripts/zoo_bench.py as data, not asserted here.
+Precision guidance case for --refine), so f32 parity is not asserted
+here.
 """
 
 import os
@@ -28,11 +28,11 @@ pytestmark = pytest.mark.skipif(
     reason="reference source or toolchain unavailable",
 )
 
-from abft_sparse_cg_tpu.backends import create  # noqa: E402
-from abft_sparse_cg_tpu.formats import build_protected, load_matrix  # noqa: E402
-from abft_sparse_cg_tpu.utils.glibc_rand import glibc_rand_uniform  # noqa: E402
-from abft_sparse_cg_tpu.utils.matgen import write_mm_triangle  # noqa: E402
-from abft_sparse_cg_tpu.utils.matzoo import ZOO  # noqa: E402
+from abft_sparse_cg.backends import create  # noqa: E402
+from abft_sparse_cg.formats import build_protected, load_matrix  # noqa: E402
+from abft_sparse_cg.utils.glibc_rand import glibc_rand_uniform  # noqa: E402
+from abft_sparse_cg.utils.matgen import write_mm_triangle  # noqa: E402
+from abft_sparse_cg.utils.matzoo import ZOO  # noqa: E402
 
 # A structural spread that keeps the CPU budget sane: the live f32
 # divergence case (powerlaw), the bordered + band-split composites,
@@ -57,11 +57,7 @@ def ref_exe(tmp_path_factory):
 
 
 @pytest.mark.parametrize("name", FAMILIES)
-def test_zoo_f64_trajectory_matches_reference(ref_exe, name,
-                                              tmp_path, monkeypatch):
-    # The Benes plan is irrelevant to a host f64 parity check; skip the
-    # routing build so the test budget stays in the solves.
-    monkeypatch.setenv("ABFT_NO_UNSTR", "1")
+def test_zoo_f64_trajectory_matches_reference(ref_exe, name, tmp_path):
     builder, _pred = ZOO[name]
     rows, cols, vals, n = builder()
     mtx = str(tmp_path / f"{name}.mtx")

@@ -1,27 +1,23 @@
 """Adversarial matrix zoo: routing assertions (utils.matzoo).
 
-Ten structurally distinct SPD families NOT drawn from the bench
-generators; each entry pins the verified layout/tier decision under the
-CLI's pallas build (`row_align=1024`).  scripts/zoo_bench.py re-checks
-the same predictions on hardware and adds timing vs the compiled
-reference binary.  A regression that silently drops a family from its
-compiled tier fails here.
+Eleven structurally distinct SPD families NOT drawn from the bench
+generators; each entry pins the verified layout and route decision
+(`row_align=1024`, a multiple of every mesh alignment the CLI uses).  A
+regression that silently drops a family from its kernel route fails
+here.
 """
 
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
+from abft_sparse_cg.formats import build_protected
+from abft_sparse_cg.ops.spmv_pallas import route_for
+from abft_sparse_cg.utils.matzoo import ZOO, zoo_assembled
 
-from abft_sparse_cg_tpu.formats import build_protected
-from abft_sparse_cg_tpu.ops.spmv_pallas import supports
-from abft_sparse_cg_tpu.utils.matzoo import ZOO, zoo_assembled
-
-# Families small enough for the CPU test budget; the rest (identical
-# code path, bigger constants) run in scripts/zoo_bench.py only.
+# Families small enough for the CPU test budget (blockdiag-random takes
+# the same code path with bigger constants; k729 has its own test).
 FAST = [n for n in ZOO if n not in ("blockdiag-random",
-                                    "dense-radius-k729")]  # k729's Benes
-#                                     plan build (~15 s) gets its own test
+                                    "dense-radius-k729")]  # own test
 
 
 @pytest.mark.parametrize("name", FAST)
@@ -31,10 +27,8 @@ def test_zoo_routing(name):
                         row_align=1024)
     assert m.exec_kind == pred["kind"], (name, m.exec_kind)
     assert (m.perm is not None) == pred["perm"], name
-    if m.exec_kind == "split":
-        kern = supports(m.main, jnp.float32)
-    else:
-        kern = supports(m, jnp.float32)
+    part = m.main if m.exec_kind == "split" else m
+    kern = route_for(part, "gpu") != "xla-live"
     assert kern == pred["kernel"], (name, kern)
 
 
@@ -48,31 +42,27 @@ def test_zoo_arrowhead_gets_dense_tail_plan():
     assert m.tail.dense_plan is not None
 
 
-def test_zoo_k729_routes_to_benes_tier():
-    """K=729 > the 512-slot ELL envelope at band <= the split trigger:
-    an ELL layout would have NO compiled kernel at any tier, so
-    routing must rebuild on the flat/Benes route with the plan
-    attached (VERDICT r4 item 8)."""
+def test_zoo_k729_routes_to_ell_kernel():
+    """K=729 slots per row at a narrow band: ELL (the K*R footprint is
+    within the padding bound), on the ELL kernel route."""
     m = build_protected("csr", zoo_assembled("dense-radius-k729"),
                         "secded", row_align=1024)
-    assert m.exec_kind == "flat" and m.K == 729
-    assert m.unstr_plan is not None
-    assert supports(m, jnp.float32)
+    assert m.exec_kind == "ell" and m.K == 729
+    assert route_for(m, "gpu") == "triton-ell"
 
 
 def test_zoo_highk_k175_on_kernel():
-    """dense-radius-3d: K=175 — past the old 64-slot cap, inside the
-    round-4 envelope; must stay on the compiled ELL tier."""
+    """dense-radius-3d: K=175 must stay on the ELL kernel route."""
     m = build_protected("csr", zoo_assembled("dense-radius-3d"),
                         "secded", row_align=1024)
     assert m.exec_kind == "ell" and m.K == 175
-    assert supports(m, jnp.float32)
+    assert route_for(m, "gpu") == "triton-ell"
 
 
 def test_zoo_solves_correctly():
     """End-to-end correctness on the nastiest three: jnp f64 solve
     converges and matches a dense-ish oracle residual."""
-    from abft_sparse_cg_tpu.backends import create
+    from abft_sparse_cg.backends import create
 
     for name in ("arrowhead", "bitreversal-banded", "powerlaw-graph"):
         a = zoo_assembled(name)
